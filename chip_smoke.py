@@ -4,16 +4,25 @@
 
 Phases, each of which passes or raises (nothing is caught):
   1. device  - the card's name and power limit; no card, no run;
-  2. build   - nvcc builds every kernel of the serving path from
-               s2i_tpu_torch/csrc/ (one process per source, all at once);
+  2. build   - nvcc builds every kernel of the serving and training paths
+               from s2i_tpu_torch/csrc/ (one process per source, all at once);
   3. kernels - each kernel against its plain PyTorch version on the card, at
                the shapes the serving path gives it (plus a second log-mel
-               geometry), with times from CUDA events;
+               geometry) and at the training shapes (batch 64), with times
+               from CUDA events;
   4. serve   - the birds config (cfg/birds_3stages.yml) at full width with
                seeded random weights behind the HTTP server: POSTed WAVs come
                back as 256 px PNGs, the kernels' launch counters show that
                the requests went through them, and the same batch through the
-               plain versions on the CPU (same weights, same z) agrees.
+               plain versions on the CPU (same weights, same z) agrees;
+  5. train   - encoder distillation pretraining of
+               cfg/pretrain_encoder_birds.yml at full width (batch 64, 1024
+               frames, bi-GRU H=512, 200 classes) through run_encoder_pretrain
+               on 64 ragged synthetic WAVs: featurize (K1) → encoder (K2) →
+               loss → backward (K3) → Adam; the launch counters show each
+               step went through the three kernels, the first step matches
+               the same step on the CPU through the plain versions, and the
+               step time is measured.
 The last lines are a JSON record of the kernels, the card as nvidia-smi
 names it, and {"ok": true, "device": {...}}.
 """
@@ -22,6 +31,7 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import subprocess
 import threading
 import time
@@ -30,7 +40,7 @@ import urllib.request
 import numpy as np
 import torch
 
-from s2i_tpu_torch import config
+from s2i_tpu_torch import cli, config
 from s2i_tpu_torch.audio.frontend import (
     FrontendParams,
     center_pad,
@@ -44,13 +54,18 @@ from s2i_tpu_torch.models.layers import BatchNorm
 from s2i_tpu_torch.ops import build, gru_kernel, mel_kernel
 from s2i_tpu_torch.pipeline import SpeechToImage, build_encoder, build_generator
 from s2i_tpu_torch.serving import make_server
+from s2i_tpu_torch.train.encoder import encoder_train_step, init_encoder_state
+from s2i_tpu_torch.train.losses import distillation_loss
 
 # NVIDIA H100 SXM data sheet (700 W): fp32 without tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 SEED = 0
 BATCH = 8  # the server's batch, and the kernels' batch at the serving shapes
+TRAIN_BATCH = 64  # ENCODER.BATCH_SIZE of cfg/pretrain_encoder_birds.yml
 LATENCY_RUNS = 20
+TRAIN_STEPS = 3  # steps of the counted training run
+STEP_RUNS = 12  # timed training steps, after 2 of warm-up
 
 # Tolerances, all absolute, float32 sums taken in another order than the
 # plain version's: the log-mel (DFT sums of 400 products, then a log),
@@ -60,6 +75,17 @@ TOL_MEL = 1e-4
 TOL_GRU = 1e-5
 TOL_FEATS = 5e-4
 TOL_IMAGE = 5e-4
+# The GRU backward, relative to the largest magnitude of each output: dW_h
+# and db_h sum T·B = 8192 products, dxw and dh0 carry a sum over 128
+# reverse steps.
+TOL_GRU_BWD = 5e-6
+# The first training step, card vs CPU, through BN batch statistics (whose
+# gradients subtract means), 128-step recurrences both ways and 3 convs:
+# loss relative to itself, each gradient relative to its tensor's largest
+# magnitude, the updated BN running statistics relative to max(1, |stat|).
+TOL_TRAIN_LOSS = 1e-4
+TOL_TRAIN_GRAD = 1e-3
+TOL_TRAIN_STATS = 1e-4
 
 
 def log(msg: str) -> None:
@@ -112,8 +138,8 @@ def phase_device() -> tuple[str, str]:
 
 def phase_build() -> None:
     t0 = time.time()
-    build.build_all(["mel_fused", "gru_fwd"])
-    log(f"[build] mel_fused + gru_fwd in {time.time() - t0:.1f} s")
+    build.build_all(["mel_fused", "gru_fwd", "gru_bwd"])
+    log(f"[build] mel_fused + gru_fwd + gru_bwd in {time.time() - t0:.1f} s")
     for name, text in build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -135,36 +161,46 @@ def check_logmel(p: FrontendParams, wavs: np.ndarray) -> tuple[float, float, flo
     return err, k_ms, p_ms, n
 
 
-def phase_kernels() -> dict:
-    cfg = config.cfg_from_file("cfg/birds_3stages.yml")
-    p = frontend_params_from_cfg(cfg.AUDIO)
-    wavs = tone_batch(p.max_samples, [p.max_samples, 120000, 80000, 164000, 40000, 9000, 150000, 400], 1)
+def kernel_logmel(p: FrontendParams, wavs: np.ndarray, label: str) -> dict:
     err, k_ms, p_ms, n = check_logmel(p, wavs)
-    flops = 2.0 * 2 * BATCH * n * p.win_length * p.n_bins + 2.0 * BATCH * n * p.n_bins * p.n_mels
-    nbytes = 4.0 * (wavs.size + 2 * p.win_length * p.n_bins + p.n_bins * p.n_mels + BATCH * n * p.n_mels)
+    b = wavs.shape[0]
+    flops = 2.0 * 2 * b * n * p.win_length * p.n_bins + 2.0 * b * n * p.n_bins * p.n_mels
+    nbytes = 4.0 * (wavs.size + 2 * p.win_length * p.n_bins + p.n_bins * p.n_mels + b * n * p.n_mels)
     b_ms, b_by = bound(flops, nbytes)
-    log(f"[kernels] mel_fused birds B={BATCH} wav={p.max_samples} frames={n}: max_abs_err={err:.3g} "
+    log(f"[kernels] mel_fused {label} B={b} wav={p.max_samples} frames={n}: max_abs_err={err:.3g} "
         f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms=none")
-    mel = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
-    # a second geometry: n_fft/hop = 12.8, center padding, preemphasis, ragged
-    p2 = FrontendParams(hop_length=40, center=True, preemphasis=0.97, max_frames=4096)
-    err2, k2, pl2, n2 = check_logmel(p2, tone_batch(64000, [64000, 30011, 5000, 401, 64000, 12345, 777, 50000], 2))
-    log(f"[kernels] mel_fused hop=40 center preemph B={BATCH} frames={n2}: max_abs_err={err2:.3g} "
-        f"kernel_ms={k2:.4f} plain_ms={pl2:.4f}")
-    mel["max_abs_err"] = max(err, err2)
 
-    # GRU at the encoder's shapes: T=1024/8=128 steps, B=8, H=512, input 256
-    t, b, h, c_in = 128, BATCH, int(cfg.ENCODER.RNN_HIDDEN), int(cfg.ENCODER.CONV_CHANNELS[-1])
+def gru_setup(t: int, b: int, h: int, c_in: int, lens, h0_scale: float = 0.0) -> dict:
+    """Seeded GRU inputs on the card: x, nn.GRU-layout weights, the port's
+    xw / w_h, a mask from ``lens`` and h0 (zeros, or ``h0_scale`` * N(0, 1))."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rnd = lambda *s, scale=1.0: scale * torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
-    x = rnd(t, b, c_in)
-    w_ih, w_hh = rnd(3 * h, c_in, scale=c_in ** -0.5), rnd(3 * h, h, scale=h ** -0.5)
-    b_ih, b_hh = rnd(3 * h, scale=0.1), rnd(3 * h, scale=0.1)
-    xw = torch.nn.functional.linear(x, w_ih, b_ih).contiguous()
-    w_h, h0 = w_hh.t().contiguous(), torch.zeros(b, h, device="cuda")
-    lens = torch.tensor([t, 100, 64, 1, t, 77, 120, 0], device="cuda")  # ragged, one all-masked
-    mask = (torch.arange(t, device="cuda")[:, None] < lens[None, :]).float()
+    g = dict(x=rnd(t, b, c_in))
+    g["w_ih"], g["w_hh"] = rnd(3 * h, c_in, scale=c_in ** -0.5), rnd(3 * h, h, scale=h ** -0.5)
+    g["b_ih"], g["b_hh"] = rnd(3 * h, scale=0.1), rnd(3 * h, scale=0.1)
+    g["xw"] = torch.nn.functional.linear(g["x"], g["w_ih"], g["b_ih"]).contiguous()
+    g["w_h"] = g["w_hh"].t().contiguous()
+    g["h0"] = rnd(b, h, scale=h0_scale) if h0_scale else torch.zeros(b, h, device="cuda")
+    lens = torch.as_tensor(lens, device="cuda")
+    g["mask"] = (torch.arange(t, device="cuda")[:, None] < lens[None, :]).float()
+    return g
+
+
+def cudnn_gru(g: dict) -> torch.nn.GRU:
+    """The yardstick: cuDNN's GRU holding the same weights."""
+    ref = torch.nn.GRU(g["x"].shape[-1], g["w_h"].shape[0]).cuda()
+    with torch.no_grad():
+        for name, v in (("weight_ih_l0", g["w_ih"]), ("weight_hh_l0", g["w_hh"]),
+                        ("bias_ih_l0", g["b_ih"]), ("bias_hh_l0", g["b_hh"])):
+            getattr(ref, name).copy_(v)
+    return ref
+
+
+def kernel_gru_fwd(g: dict) -> dict:
+    xw, w_h, b_hh, mask, h0 = (g[k] for k in ("xw", "w_h", "b_hh", "mask", "h0"))
+    t, b, h = xw.shape[0], xw.shape[1], w_h.shape[0]
     got = gru_kernel.gru_scan(xw, w_h, b_hh, mask, h0)
     torch.cuda.synchronize()
     want = gru_kernel.gru_scan_plain(xw, w_h, b_hh, mask, h0)
@@ -175,21 +211,93 @@ def phase_kernels() -> dict:
     p_ms = time_ms(lambda: gru_kernel.gru_scan_plain(xw, w_h, b_hh, mask, h0), reps=5)
     # yardstick: cuDNN's GRU with the same weights at full-length masks (it
     # also does the input projection, which the port leaves to F.linear)
-    ref = torch.nn.GRU(c_in, h).cuda()
+    ref = cudnn_gru(g)
     with torch.no_grad():
-        for name, v in (("weight_ih_l0", w_ih), ("weight_hh_l0", w_hh), ("bias_ih_l0", b_ih), ("bias_hh_l0", b_hh)):
-            getattr(ref, name).copy_(v)
         full = torch.ones_like(mask)
-        lib_err = (ref(x)[0] - gru_kernel.gru_scan(xw, w_h, b_hh, full, h0)).abs().max().item()
-        l_ms = time_ms(lambda: ref(x))
+        x, h0_ref = g["x"], h0[None]
+        lib_err = (ref(x, h0_ref)[0] - gru_kernel.gru_scan(xw, w_h, b_hh, full, h0)).abs().max().item()
+        l_ms = time_ms(lambda: ref(x, h0_ref))
     flops = 2.0 * t * b * h * 3 * h + 12.0 * t * b * h  # h @ W_h + the gates
     nbytes = 4.0 * (xw.numel() + w_h.numel() + b_hh.numel() + mask.numel() + h0.numel() + got.numel())
     b_ms, b_by = bound(flops, nbytes)
     log(f"[kernels] gru_fwd T={t} B={b} H={h}: max_abs_err={err:.3g} kernel_ms={k_ms:.4f} "
         f"({1e3 * k_ms / t:.2f} us/step) plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
         f"(cuDNN, max_abs_err vs kernel at full masks {lib_err:.3g}) bound_ms={b_ms:.4f} ({b_by})")
-    gru = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
-    return {"mel_fused": mel, "gru_fwd": gru}
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+
+
+def kernel_gru_bwd(g: dict) -> dict:
+    xw, w_h, b_hh, mask, h0 = (g[k] for k in ("xw", "w_h", "b_hh", "mask", "h0"))
+    t, b, h = xw.shape[0], xw.shape[1], w_h.shape[0]
+    ys = gru_kernel.gru_scan_plain(xw, w_h, b_hh, mask, h0)
+    dys = torch.randn(ys.shape, generator=torch.Generator(device="cuda").manual_seed(SEED + 1), device="cuda")
+    args = (xw, w_h, b_hh, mask, h0, ys, dys)
+    got = gru_kernel.gru_scan_bwd(*args)
+    torch.cuda.synchronize()
+    want = gru_kernel.gru_scan_bwd_plain(*args)
+    errs = {name: ((a - w).abs().max().item(), w.abs().max().item())
+            for name, a, w in zip(("dxw", "dw_h", "db_h", "dh0"), got, want)}
+    for name, (err, scale) in errs.items():
+        if not err <= TOL_GRU_BWD * max(1.0, scale):
+            raise AssertionError(f"GRU backward kernel disagrees with its plain version on {name}: "
+                                 f"{err} > {TOL_GRU_BWD} * {scale}")
+    k_ms = time_ms(lambda: gru_kernel.gru_scan_bwd(*args))
+    p_ms = time_ms(lambda: gru_kernel.gru_scan_bwd_plain(*args), reps=3)
+    # yardstick: cuDNN's GRU forward+backward minus its forward, full masks,
+    # same weights and h0 (its backward also gives dx and dW_ih)
+    ref = cudnn_gru(g)
+    x = g["x"].clone().requires_grad_()
+    h0_ref = h0[None]
+    leaves = [x, *ref.parameters()]
+    f_ms = time_ms(lambda: ref(x, h0_ref))
+    fb_ms = time_ms(lambda: torch.autograd.grad(ref(x, h0_ref)[0], leaves, dys))
+    l_ms = fb_ms - f_ms
+    # three products of 2·T·B·H·3H (gate recompute, dhg @ W_h^T, h^T dhg) + the gates
+    flops = 3 * 2.0 * t * b * h * 3 * h + 40.0 * t * b * h
+    nbytes = 4.0 * (sum(a.numel() for a in args) + sum(a.numel() for a in got))
+    b_ms, b_by = bound(flops, nbytes)
+    rel = " ".join(f"{k}={e:.3g}/{s_:.3g}" for k, (e, s_) in errs.items())
+    log(f"[kernels] gru_bwd T={t} B={b} H={h}: max_abs_err/max_abs {rel} (tol {TOL_GRU_BWD} relative) "
+        f"kernel_ms={k_ms:.4f} ({1e3 * k_ms / t:.2f} us/step) plain_ms={p_ms:.4f} "
+        f"library_ms={l_ms:.4f} (cuDNN GRU fwd+bwd {fb_ms:.4f} - fwd {f_ms:.4f}, full masks) "
+        f"bound_ms={b_ms:.4f} ({b_by})")
+    return dict(max_abs_err=max(e for e, _ in errs.values()), ms=k_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+
+
+def train_lengths(n_samples: int) -> np.ndarray:
+    """64 utterance lengths from the full 164,080 samples down to 3,000."""
+    lens = np.linspace(n_samples, 3000, TRAIN_BATCH).round().astype(np.int32)
+    return np.random.default_rng(SEED).permutation(lens)
+
+
+def phase_kernels() -> dict:
+    cfg = config.cfg_from_file("cfg/birds_3stages.yml")
+    p = frontend_params_from_cfg(cfg.AUDIO)
+    wavs = tone_batch(p.max_samples, [p.max_samples, 120000, 80000, 164000, 40000, 9000, 150000, 400], 1)
+    mel = kernel_logmel(p, wavs, "birds")
+
+    # a second geometry: n_fft/hop = 12.8, center padding, preemphasis, ragged
+    p2 = FrontendParams(hop_length=40, center=True, preemphasis=0.97, max_frames=4096)
+    err2, k2, pl2, n2 = check_logmel(p2, tone_batch(64000, [64000, 30011, 5000, 401, 64000, 12345, 777, 50000], 2))
+    log(f"[kernels] mel_fused hop=40 center preemph B={BATCH} frames={n2}: max_abs_err={err2:.3g} "
+        f"kernel_ms={k2:.4f} plain_ms={pl2:.4f}")
+    mel["max_abs_err"] = max(mel["max_abs_err"], err2)
+
+    # GRU at the encoder's shapes: T=1024/8=128 steps, B=8, H=512, input 256
+    t, h, c_in = 128, int(cfg.ENCODER.RNN_HIDDEN), int(cfg.ENCODER.CONV_CHANNELS[-1])
+    gru = kernel_gru_fwd(gru_setup(t, BATCH, h, c_in, [t, 100, 64, 1, t, 77, 120, 0]))  # ragged, one all-masked
+
+    # the training shapes: batch 64, ragged lengths with one all-masked row, non-zero h0
+    mel["train"] = kernel_logmel(p, tone_batch(p.max_samples, train_lengths(p.max_samples), 4), "birds train")
+    lens = np.random.default_rng(SEED).integers(1, t + 1, TRAIN_BATCH)
+    lens[0], lens[-1] = t, 0
+    g64 = gru_setup(t, TRAIN_BATCH, h, c_in, lens, h0_scale=0.5)
+    gru["train"] = kernel_gru_fwd(g64)
+    gru_bwd = kernel_gru_bwd(g64)
+    for row in (mel, gru, gru_bwd):
+        row["max_abs_err"] = max(row["max_abs_err"], row.get("train", row)["max_abs_err"])
+    return {"mel_fused": mel, "gru_fwd": gru, "gru_bwd": gru_bwd}
 
 
 def embedding(out) -> torch.Tensor:
@@ -347,18 +455,143 @@ def phase_serve(card: str) -> dict[str, int]:
     return launches
 
 
+def train_batch(p: FrontendParams, n_classes: int, emb_dim: int) -> dict:
+    """64 ragged synthetic WAVs with a teacher embedding and a class id each."""
+    rng = np.random.default_rng(SEED + 5)
+    lens = train_lengths(p.max_samples)
+    return {"wav": tone_batch(p.max_samples, lens, 5), "wav_len": lens,
+            "teacher": rng.standard_normal((TRAIN_BATCH, emb_dim)).astype(np.float32),
+            "class_id": rng.integers(0, n_classes, TRAIN_BATCH)}
+
+
+def step_parts_ms(state, raw: dict, p: FrontendParams) -> dict[str, float]:
+    """Device ms of one training step's parts (CUDA events): featurize
+    (host wav → log-mel, K1), forward + loss (K2), backward (K3), Adam. The
+    parts are those of encoder_train_step, spelled out to put events between
+    them."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    model = state.model
+    ev[0].record()
+    batch = cli.featurize(raw, p, "cuda")
+    ev[1].record()
+    emb, logits = model(batch["feats"], batch["feat_mask"])
+    teacher = torch.as_tensor(batch["teacher"], device="cuda")
+    labels = torch.as_tensor(batch["class_id"], device="cuda").long()
+    loss, _ = distillation_loss(emb, teacher, logits, labels, state.ce_coeff)
+    ev[2].record()
+    state.opt.zero_grad(set_to_none=True)
+    loss.backward()
+    ev[3].record()
+    state.opt.step()
+    ev[4].record()
+    torch.cuda.synchronize()
+    names = ("featurize", "forward", "backward", "adam")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def phase_train(card: str) -> dict[str, int]:
+    cfg = config.cfg_from_file("cfg/pretrain_encoder_birds.yml")
+    cfg.ENCODER.LOG_EVERY = 1
+    e = cfg.ENCODER
+    p = frontend_params_from_cfg(cfg.AUDIO)
+    raw = train_batch(p, int(e.N_CLASSES), int(cfg.TEXT.DIMENSION))
+    log(f"[train] {cfg.CONFIG_NAME}: batch {e.BATCH_SIZE}, {p.max_samples} samples -> {p.max_frames} frames "
+        f"x {p.n_mels} mels, convs {list(e.CONV_CHANNELS)} k{e.CONV_KERNEL} s{e.CONV_STRIDE}, "
+        f"bi-GRU H={e.RNN_HIDDEN}, {e.N_CLASSES} classes, CE_COEFF {e.CE_COEFF}, Adam lr {e.LR}; "
+        f"wav lengths {raw['wav_len'].min()}..{raw['wav_len'].max()}")
+    if int(e.BATCH_SIZE) != TRAIN_BATCH:
+        raise AssertionError(f"{cfg.CONFIG_NAME}: batch {e.BATCH_SIZE}, expected {TRAIN_BATCH}")
+
+    # the training path, counted from zero: TRAIN_STEPS steps of run_encoder_pretrain
+    mel_kernel.logmel.launches = 0
+    gru_kernel.gru_scan.launches = 0
+    gru_kernel.gru_scan_bwd.launches = 0
+    run_dir = os.path.join(cfg.OUTPUT_DIR, f"chip_smoke_encoder_{os.getpid()}")
+    t0 = time.time()
+    mets = cli.run_encoder_pretrain(cfg, steps=TRAIN_STEPS, device="cuda", run_dir=run_dir,
+                                    wav_batches=lambda epoch: [raw] * TRAIN_STEPS)
+    launches = {"mel_fused": mel_kernel.logmel.launches, "gru_fwd": gru_kernel.gru_scan.launches,
+                "gru_bwd": gru_kernel.gru_scan_bwd.launches}
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    losses = [rec["loss"] for rec in lines]
+    log(f"[train] run_encoder_pretrain {TRAIN_STEPS} steps in {time.time() - t0:.1f} s (first-call "
+        f"set-up included): losses {losses}, last {mets}; launches {launches}")
+    if len(losses) != TRAIN_STEPS or not all(isinstance(v, float) and np.isfinite(v) for v in losses):
+        raise AssertionError(f"training losses not finite, or not one per step: {losses}")
+    want = {"mel_fused": TRAIN_STEPS, "gru_fwd": 2 * TRAIN_STEPS, "gru_bwd": 2 * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want} (K1 1, K2 2, K3 2 per step)")
+
+    # the same first step on the card and on the CPU through the plain
+    # versions: same seeded weights, same batch
+    states = {dev: init_encoder_state(cfg, device=dev) for dev in ("cuda", "cpu")}
+    step_mets = {dev: encoder_train_step(st, cli.featurize(raw, p, dev)) for dev, st in states.items()}
+    loss_c, loss_p = float(step_mets["cuda"]["loss"]), float(step_mets["cpu"]["loss"])
+    if not np.isfinite(loss_c):
+        raise AssertionError(f"loss on the card is not finite: {loss_c}")
+    grad_err, zero = {}, []
+    params_p = dict(states["cpu"].model.named_parameters())
+    for name, pc in states["cuda"].model.named_parameters():
+        gc, gp = pc.grad, params_p[name].grad
+        if gc is None or not gc.abs().max().item() > 0:
+            zero.append(name)
+            continue
+        grad_err[name] = (gc.cpu() - gp).abs().max().item() / gp.abs().max().item()
+    if zero:
+        raise AssertionError(f"encoder parameters with no gradient on the card: {zero}")
+    sd_p = states["cpu"].model.state_dict()
+    stat_err = max((v.cpu() - sd_p[k]).abs().max().item() / max(1.0, sd_p[k].abs().max().item())
+                   for k, v in states["cuda"].model.state_dict().items() if "running" in k)
+    worst = max(grad_err, key=grad_err.get)
+    loss_err = abs(loss_c - loss_p) / abs(loss_p)
+    log(f"[train] first step card vs plain (CPU): loss {loss_c:.6f} vs {loss_p:.6f} (rel err {loss_err:.3g}, "
+        f"tol {TOL_TRAIN_LOSS}); grads of {len(grad_err)} tensors, all non-zero, worst max_abs_err/max_abs "
+        f"{grad_err[worst]:.3g} ({worst}; tol {TOL_TRAIN_GRAD}); BN running stats {stat_err:.3g} "
+        f"(tol {TOL_TRAIN_STATS})")
+    if not (loss_err <= TOL_TRAIN_LOSS and grad_err[worst] <= TOL_TRAIN_GRAD and stat_err <= TOL_TRAIN_STATS):
+        raise AssertionError("the card's training step disagrees with the plain path")
+
+    # step time: featurize + encoder_train_step, host clock, synchronized
+    state = states["cuda"]
+    for _ in range(2):
+        encoder_train_step(state, cli.featurize(raw, p, "cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(STEP_RUNS):
+        t0 = time.perf_counter()
+        m = encoder_train_step(state, cli.featurize(raw, p, "cuda"))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if not np.isfinite(float(m["loss"])):
+        raise AssertionError(f"loss not finite after {state.step} steps: {m}")
+    parts = [step_parts_ms(state, raw, p) for _ in range(3)]
+    med = {k: float(np.median([pt[k] for pt in parts])) for k in parts[0]}
+    log(f"[train] {card}: batch {TRAIN_BATCH} step (featurize + encoder_train_step) ms "
+        f"median {np.median(times):.2f} min {min(times):.2f} max {max(times):.2f} (n={len(times)}); "
+        f"device ms (median of 3) " + " ".join(f"{k} {v:.3f}" for k, v in med.items())
+        + f" sum {sum(med.values()):.3f}; max_memory_allocated {peak:.0f} MiB; loss after "
+        f"{state.step} steps {float(m['loss']):.4f}")
+    return launches
+
+
 def main() -> None:
     name, smi = phase_device()
     phase_build()
     kernels = phase_kernels()
-    launches = phase_serve(f"{name} ({smi})")
+    serve = phase_serve(f"{name} ({smi})")
+    train = phase_train(f"{name} ({smi})")
     rows = []
     for kname, route, src, replaces in (
         ("mel_fused", "cuda", "s2i_tpu_torch/csrc/mel_fused.cu", "s2i_tpu/ops/mel_kernel.py:151"),
         ("gru_fwd", "cuda", "s2i_tpu_torch/csrc/gru_fwd.cu", "s2i_tpu/ops/gru_kernel.py:48"),
+        ("gru_bwd", "cuda", "s2i_tpu_torch/csrc/gru_bwd.cu", "s2i_tpu/ops/gru_kernel.py:67"),
     ):
+        by_path = {"serve": serve.get(kname, 0), "train": train[kname]}
         rows.append({"name": kname, "route": route, "source": src, "replaces": replaces,
-                     "launches": launches[kname], **kernels[kname]})
+                     "launches": sum(by_path.values()), "launches_by_path": by_path, **kernels[kname]})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

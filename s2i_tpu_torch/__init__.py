@@ -1,15 +1,20 @@
 """s2i_tpu_torch: the PyTorch/CUDA port of direct speech-to-image translation.
 
-The serving path of the JAX package (``s2i_tpu``), rebuilt on PyTorch for an
-NVIDIA Hopper card:
+The serving path and the encoder distillation pretraining of the JAX
+package (``s2i_tpu``), rebuilt on PyTorch for an NVIDIA Hopper card:
 
     wav → audio.frontend.extract_features   (log-mel: csrc/mel_fused.cu)
-        → models.encoder.SpeechEncoder      (bi-GRU: csrc/gru_fwd.cu)
+        → models.encoder.SpeechEncoder      (bi-GRU: csrc/gru_fwd.cu,
+                                             its gradient csrc/gru_bwd.cu)
         → models.ca_net.CANet μ
         → models.generator.GNet             → top-scale image [B, S, S, 3]
 
+    cli.run_encoder_pretrain → train.encoder.encoder_train_step:
+        SpeechEncoder in train mode → train.losses.distillation_loss → Adam
+
 Entry points (``pipeline.SpeechToImage``, ``serving.make_server``,
-``audio.frontend.extract_features``) run on ``device="cuda"`` unless the
+``audio.frontend.extract_features``, ``train.encoder.init_encoder_state``,
+``cli.run_encoder_pretrain``) run on ``device="cuda"`` unless the
 caller passes ``device="cpu"``; without a card they raise instead of
 drifting to the CPU. On a CPU tensor every kernel wrapper runs its plain
 PyTorch version, which is how the tests hold the port against the JAX

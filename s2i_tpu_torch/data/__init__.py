@@ -1,0 +1,5 @@
+"""Training data of the port: the synthetic fixture corpora (numpy only)."""
+
+from s2i_tpu_torch.data.synthetic import SyntheticSpeechDataset
+
+__all__ = ["SyntheticSpeechDataset"]

@@ -85,7 +85,11 @@ class BiGRU(nn.Module):
 
 class SpeechEncoder(nn.Module):
     """feats [B, T, n_mels] (+ mask [B, T]) → emb [B, emb_dim], or
-    (emb, logits) when ``n_classes`` > 0. Inference only (BN running stats)."""
+    (emb, logits) when ``n_classes`` > 0. ``eval()`` normalizes with the BN
+    running statistics; ``train()`` with the batch's, updating the running
+    ones as Flax's ``apply(..., train=True, mutable=["batch_stats"])``
+    does. Gradients reach every parameter, the recurrence's through
+    ``GRUScan``."""
 
     def __init__(
         self,

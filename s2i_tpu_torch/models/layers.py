@@ -26,11 +26,17 @@ class GLU(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over dim 1 of [B, C] or [B, C, H, W], with the
-    JAX package's formula: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``
-    from the running statistics. Its state_dict keys are those of
-    ``nn.BatchNorm{1,2}d`` minus ``num_batches_tracked``; training-mode
-    statistics belong to the training slice of the port."""
+    """BatchNorm over dim 1 of [B, C], [B, C, T] or [B, C, H, W], with Flax
+    ``nn.BatchNorm``'s formula: ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias``. In eval mode mean/var are the running statistics. In train mode
+    they are the batch's, over every dim but 1, with Flax's fast biased
+    variance ``max(0, E[x²] - E[x]²)``, and the running statistics move by
+    ``running = momentum * running + (1 - momentum) * batch`` (Flax's
+    momentum 0.9 is torch's 0.1; the running variance stays biased). Its
+    state_dict keys are those of ``nn.BatchNorm{1,2}d`` minus
+    ``num_batches_tracked``."""
+
+    momentum = 0.9  # Flax nn.BatchNorm(momentum=0.9), as every BN of the JAX package
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -42,8 +48,18 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        if self.training:
+            dims = [0, *range(2, x.ndim)]
+            mean = x.mean(dims)
+            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
 class Upsample2x(nn.Module):

@@ -9,7 +9,9 @@ Tolerances are absolute, for float32 sums taken in another order than the
 plain version's: 1e-4 on log-mel (400-term DFT sums, then a log), 2e-4 on
 normalized features (that error over the utterance's standard deviation),
 1e-5 on GRU states (H-term dot products over T dependent steps), 1e-4 on
-images (the encoder and generator behind them)."""
+images (the encoder and generator behind them). GRU gradients: 5e-6 of the
+largest magnitude of each output (dW_h and db_h sum T·B products, dxw and
+dh0 carry the sum over T reverse steps)."""
 
 import numpy as np
 import pytest
@@ -94,6 +96,66 @@ def test_gru_kernel_matches_plain(card, t, b, h):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5, rtol=0)
     # the all-masked row carries h0 through every step
     np.testing.assert_array_equal(got[:, -1].cpu().numpy(), np.broadcast_to(args["h0"][-1], (t, h)).astype(np.float32))
+
+
+def _gru_args(t, b, h, card):
+    rng = np.random.default_rng(t + b + h)
+    lens = rng.integers(1, t + 1, b)
+    lens[0], lens[-1] = t, 0  # full, ragged, all-masked
+    args = dict(
+        xw=rng.standard_normal((t, b, 3 * h)),
+        w_h=rng.standard_normal((h, 3 * h)) / np.sqrt(h),
+        b_h=0.1 * rng.standard_normal(3 * h),
+        mask=np.arange(t)[:, None] < lens[None, :],
+        h0=0.5 * rng.standard_normal((b, h)),
+    )
+    dev = {k: torch.from_numpy(np.asarray(v, np.float32)).to(card) for k, v in args.items()}
+    dys = torch.from_numpy(rng.standard_normal((t, b, h)).astype(np.float32)).to(card)
+    return dev, dys
+
+
+def _assert_grads_close(got, want):
+    for name, g, w in zip(("dxw", "dw_h", "db_h", "dh0"), got, want):
+        err = (g - w).abs().max().item()
+        assert err <= 5e-6 * max(1.0, w.abs().max().item()), (name, err)
+
+
+@pytest.mark.parametrize(
+    "t,b,h",
+    [(12, 3, 16), (64, 5, 96), (8, 100, 512), (128, 64, 512)],  # b=100: two row chunks
+    ids=["h16", "h96", "b100-h512", "encoder-b64"],
+)
+def test_gru_bwd_kernel_matches_plain(card, t, b, h):
+    dev, dys = _gru_args(t, b, h, card)
+    ys = gru_kernel.gru_scan_plain(**dev)
+    before = gru_kernel.gru_scan_bwd.launches
+    got = gru_kernel.gru_scan_bwd(**dev, ys=ys, dys=dys)
+    torch.cuda.synchronize()
+    assert gru_kernel.gru_scan_bwd.launches == before + 1
+    _assert_grads_close(got, gru_kernel.gru_scan_bwd_plain(**dev, ys=ys, dys=dys))
+    # the all-masked row: nothing reaches its gates
+    assert not got[0][:, -1].any()
+
+
+def test_gru_scan_backward_on_the_card_matches_autograd(card):
+    dev, dys = _gru_args(20, 6, 64, card)
+    leaves = [dev[k].requires_grad_() for k in ("xw", "w_h", "b_h", "h0")]
+    want = torch.autograd.grad(gru_kernel.gru_scan_plain(**dev), leaves, dys)
+    before = gru_kernel.gru_scan.launches, gru_kernel.gru_scan_bwd.launches
+    ys = gru_kernel.gru_scan(**dev)
+    # a transposed gradient, as the encoder's reverse direction gives it
+    got = torch.autograd.grad(ys, leaves, dys.transpose(0, 1).contiguous().transpose(0, 1))
+    torch.cuda.synchronize()
+    assert gru_kernel.gru_scan.launches == before[0] + 1
+    assert gru_kernel.gru_scan_bwd.launches == before[1] + 1
+    _assert_grads_close(got, want)
+
+
+def test_gru_bwd_rejects_what_the_kernel_does_not_take(card):
+    dev, dys = _gru_args(4, 2, 6, card)  # H=6: rows are not whole 16-byte pieces
+    ys = gru_kernel.gru_scan_plain(**dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        gru_kernel.gru_scan_bwd(**dev, ys=ys, dys=dys)
 
 
 def test_gru_wrapper_rejects_mixed_devices(card):

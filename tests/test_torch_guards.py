@@ -67,6 +67,7 @@ def test_port_imports_with_jax_blocked():
         "for m in ('jax', 'flax', 'optax', 's2i_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import s2i_tpu_torch.pipeline, s2i_tpu_torch.serving, s2i_tpu_torch.bridge\n"
+        "import s2i_tpu_torch.cli, s2i_tpu_torch.train.encoder, s2i_tpu_torch.data\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
