@@ -4,12 +4,13 @@
 
 Phases, each of which passes or raises (nothing is caught):
   1. device  - the card's name and power limit; no card, no run;
-  2. build   - nvcc builds every kernel of the serving and training paths
-               from s2i_tpu_torch/csrc/ (one process per source, all at once);
+  2. build   - nvcc builds every kernel from s2i_tpu_torch/csrc/ (one
+               process per source, all at once);
   3. kernels - each kernel against its plain PyTorch version on the card, at
                the shapes the serving path gives it (plus a second log-mel
-               geometry) and at the training shapes (batch 64), with times
-               from CUDA events;
+               geometry), at the training shapes (batch 64) and, for the
+               framed log-mel K4, at the frontend A/B shape, with times from
+               CUDA events;
   4. serve   - the birds config (cfg/birds_3stages.yml) at full width with
                seeded random weights behind the HTTP server: POSTed WAVs come
                back as 256 px PNGs, the kernels' launch counters show that
@@ -22,7 +23,20 @@ Phases, each of which passes or raises (nothing is caught):
                loss → backward (K3) → Adam; the launch counters show each
                step went through the three kernels, the first step matches
                the same step on the CPU through the plain versions, and the
-               step time is measured.
+               step time is measured;
+  6. mel_ab  - K4's path, the frontend A/B of the JAX package's
+               scripts/perf_cert.py::cert_mel: log-mel of a seeded 8 × 64000
+               standard-normal wav (then the birds serve batch) through the
+               frame gather + K4, through K1 and through the plain version,
+               each route's error against the plain one and its device time;
+  7. gan     - GAN training of cfg/birds_3stages.yml at full width (3 stages
+               to 256 px, batch 24) through run_gan_training on synthetic
+               uint8 top-scale images: 3 counted steps, the first step card
+               vs CPU at batch 4 (every loss term, gradient and BN statistic),
+               then the step time, its parts and peak memory;
+  8. joint   - the same for cfg/birds_joint_ft.yml: the speech encoder in
+               G's optimizer group on ragged synthetic WAVs, featurized per
+               step (K1), its recurrence through K2 forward and K3 backward.
 The last lines are a JSON record of the kernels, the card as nvidia-smi
 names it, and {"ok": true, "device": {...}}.
 """
@@ -30,6 +44,7 @@ names it, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import io
+import itertools
 import json
 import os
 import subprocess
@@ -54,6 +69,8 @@ from s2i_tpu_torch.models.layers import BatchNorm
 from s2i_tpu_torch.ops import build, gru_kernel, mel_kernel
 from s2i_tpu_torch.pipeline import SpeechToImage, build_encoder, build_generator
 from s2i_tpu_torch.serving import make_server
+from s2i_tpu_torch.train import encoder as encoder_train
+from s2i_tpu_torch.train import gan
 from s2i_tpu_torch.train.encoder import encoder_train_step, init_encoder_state
 from s2i_tpu_torch.train.losses import distillation_loss
 
@@ -66,6 +83,19 @@ TRAIN_BATCH = 64  # ENCODER.BATCH_SIZE of cfg/pretrain_encoder_birds.yml
 LATENCY_RUNS = 20
 TRAIN_STEPS = 3  # steps of the counted training run
 STEP_RUNS = 12  # timed training steps, after 2 of warm-up
+GAN_BATCH = 24  # TRAIN.BATCH_SIZE of cfg/birds_3stages.yml and cfg/birds_joint_ft.yml
+GAN_STEPS = 3  # steps of each counted GAN run
+GAN_STEP_RUNS = 10  # timed GAN steps, after 2 of warm-up
+CHECK_BATCH = 4  # batch of the first GAN step held card vs CPU
+AB_SHAPE = (8, 64000)  # scripts/perf_cert.py::cert_mel's wav batch
+
+# kernel name → (wrapper whose .launches counts it, source, the TPU kernel it replaces)
+KERNELS = {
+    "mel_fused": (mel_kernel.logmel, "s2i_tpu_torch/csrc/mel_fused.cu", "s2i_tpu/ops/mel_kernel.py:151"),
+    "gru_fwd": (gru_kernel.gru_scan, "s2i_tpu_torch/csrc/gru_fwd.cu", "s2i_tpu/ops/gru_kernel.py:48"),
+    "gru_bwd": (gru_kernel.gru_scan_bwd, "s2i_tpu_torch/csrc/gru_bwd.cu", "s2i_tpu/ops/gru_kernel.py:67"),
+    "mel_framed": (mel_kernel.logmel_frames, "s2i_tpu_torch/csrc/mel_framed.cu", "s2i_tpu/ops/mel_kernel.py:37"),
+}
 
 # Tolerances, all absolute, float32 sums taken in another order than the
 # plain version's: the log-mel (DFT sums of 400 products, then a log),
@@ -86,10 +116,37 @@ TOL_GRU_BWD = 5e-6
 TOL_TRAIN_LOSS = 1e-4
 TOL_TRAIN_GRAD = 1e-3
 TOL_TRAIN_STATS = 1e-4
+# The first GAN step, card vs CPU, at full width and batch 4: every loss
+# term relative to itself; the BN running statistics of G, the Ds (and the
+# encoder) relative to max(1, |stat|). The gradients are held as a whole per
+# network (G with CA, each D, the encoder: the norm of the difference over
+# the norm), by their median tensor (max-abs error over the tensor's largest
+# magnitude) and, for every tensor, against being wrong in scale or sign. At
+# init a few tensors' gradients are small differences of large parts: G's
+# init stage (its fc and BN over 4 examples) and D256's deep 3×3 convs, where
+# the real and fake passes cancel. There two correct float32 steps (cuDNN's
+# and the CPU's) differ by several percent of the tensor's largest element,
+# while the losses, the BN statistics and most tensors agree closely; those
+# tensors carry ~1% of their network's gradient norm (this script prints
+# all three measures).
+TOL_GAN_LOSS = 1e-4
+TOL_GAN_GRAD_NET = 3e-2
+TOL_GAN_GRAD_MEDIAN = 1e-2
+TOL_GAN_GRAD_TENSOR = 0.5
+TOL_GAN_STATS = 1e-4
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def reset_counts() -> None:
+    for fn, _, _ in KERNELS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict[str, int]:
+    return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -138,8 +195,8 @@ def phase_device() -> tuple[str, str]:
 
 def phase_build() -> None:
     t0 = time.time()
-    build.build_all(["mel_fused", "gru_fwd", "gru_bwd"])
-    log(f"[build] mel_fused + gru_fwd + gru_bwd in {time.time() - t0:.1f} s")
+    build.build_all(list(KERNELS))
+    log(f"[build] {' + '.join(KERNELS)} in {time.time() - t0:.1f} s")
     for name, text in build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -170,6 +227,32 @@ def kernel_logmel(p: FrontendParams, wavs: np.ndarray, label: str) -> dict:
     log(f"[kernels] mel_fused {label} B={b} wav={p.max_samples} frames={n}: max_abs_err={err:.3g} "
         f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms=none")
     return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def kernel_mel_framed(p: FrontendParams, wavs: np.ndarray, label: str) -> dict:
+    """K4 on the frame rows of ``wavs`` against its plain version."""
+    x = center_pad(preemphasize(torch.from_numpy(wavs).cuda(), p.preemphasis), p)
+    rows = mel_kernel.frame_rows(x, p, mel_kernel.num_frames(x.shape[1], p))
+    got = mel_kernel.logmel_frames(rows, p)
+    torch.cuda.synchronize()
+    err = (got - mel_kernel.logmel_framed_plain(rows, p)).abs().max().item()
+    if not err <= TOL_MEL:
+        raise AssertionError(f"framed log-mel kernel disagrees with its plain version: {err} > {TOL_MEL}")
+    k_ms = time_ms(lambda: mel_kernel.logmel_frames(rows, p))
+    p_ms = time_ms(lambda: mel_kernel.logmel_framed_plain(rows, p))
+    r = rows.shape[0]
+    flops = 2.0 * 2 * r * p.win_length * p.n_bins + 2.0 * r * p.n_bins * p.n_mels
+    nbytes = 4.0 * (rows.numel() + 2 * p.win_length * p.n_bins + p.n_bins * p.n_mels + r * p.n_mels)
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"[kernels] mel_framed {label} B={wavs.shape[0]} wav={wavs.shape[1]} rows={r}x{p.n_fft}: "
+        f"max_abs_err={err:.3g} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; "
+        f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB) library_ms=none")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def ab_wavs() -> np.ndarray:
+    """perf_cert.py::cert_mel's input: seeded standard-normal 8 × 64000."""
+    return np.random.default_rng(SEED).standard_normal(AB_SHAPE).astype(np.float32)
 
 
 def gru_setup(t: int, b: int, h: int, c_in: int, lens, h0_scale: float = 0.0) -> dict:
@@ -297,7 +380,12 @@ def phase_kernels() -> dict:
     gru_bwd = kernel_gru_bwd(g64)
     for row in (mel, gru, gru_bwd):
         row["max_abs_err"] = max(row["max_abs_err"], row.get("train", row)["max_abs_err"])
-    return {"mel_fused": mel, "gru_fwd": gru, "gru_bwd": gru_bwd}
+
+    # K4 at its A/B shape, and at the birds serve shape (the function of K1)
+    framed = kernel_mel_framed(FrontendParams(), ab_wavs(), "A/B")
+    framed["serve"] = kernel_mel_framed(p, wavs, "birds serve")
+    framed["max_abs_err"] = max(framed["max_abs_err"], framed["serve"]["max_abs_err"])
+    return {"mel_fused": mel, "gru_fwd": gru, "gru_bwd": gru_bwd, "mel_framed": framed}
 
 
 def embedding(out) -> torch.Tensor:
@@ -306,23 +394,18 @@ def embedding(out) -> torch.Tensor:
 
 
 def seeded_pipeline(cfg, wavs: np.ndarray, lens: np.ndarray, z: np.ndarray):
-    """The pipeline on the card with random weights from ``SEED``: the JAX
-    package's init scheme (orthogonal convs and linears, BN scales
-    ~N(1, 0.02)), then every BatchNorm's running statistics set to those of
-    its input on this batch, in the order the forward pass reaches them. A
-    random network keeps unit-scale activations through every layer that
-    way, so its images span [-1, 1] and the card-vs-CPU comparison below
-    tests real values, not a near-constant image.
+    """The pipeline on the card with random weights from ``SEED``: the
+    package's init schemes (``train.encoder.init_weights``,
+    ``train.gan.init_weights``), then every BatchNorm's running statistics
+    set to those of its input on this batch, in the order the forward pass
+    reaches them. A random network keeps unit-scale activations through
+    every layer that way, so its images span [-1, 1] and the card-vs-CPU
+    comparison below tests real values, not a near-constant image.
     Returns (pipe, encoder state_dict, generator state_dict), both on the CPU."""
-    torch.manual_seed(SEED)
+    gen = torch.Generator().manual_seed(SEED)
     enc, g = build_encoder(cfg), build_generator(cfg)
-    with torch.no_grad():
-        for mod in (enc, g):
-            for m in mod.modules():
-                if isinstance(m, (torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.Linear)):
-                    torch.nn.init.orthogonal_(m.weight)
-                elif isinstance(m, BatchNorm):
-                    m.weight.normal_(1.0, 0.02)
+    encoder_train.init_weights(enc, gen)
+    gan.init_weights(g, [], gen)
     pipe = SpeechToImage(cfg, enc.state_dict(), g.state_dict(), device="cuda")
 
     def set_stats(bn, args):
@@ -379,8 +462,7 @@ def phase_serve(card: str) -> dict[str, int]:
         bodies.append(buf.getvalue())
 
     # the serving path, counted from zero: warmup batch + the POSTed requests
-    mel_kernel.logmel.launches = 0
-    gru_kernel.gru_scan.launches = 0
+    reset_counts()
     t0 = time.time()
     srv = make_server(pipe, "127.0.0.1", 0, batch_size=BATCH, device="cuda")
     threading.Thread(target=srv.serve_forever, daemon=True).start()
@@ -393,14 +475,14 @@ def phase_serve(card: str) -> dict[str, int]:
     finally:
         srv.shutdown()
         srv.server_close()
-    launches = {"mel_fused": mel_kernel.logmel.launches, "gru_fwd": gru_kernel.gru_scan.launches}
+    launches = read_counts()
     for status, png in answers:
         size = (int.from_bytes(png[16:20], "big"), int.from_bytes(png[20:24], "big"))
         if status != 200 or png[:8] != b"\x89PNG\r\n\x1a\n" or size != (256, 256):
             raise AssertionError(f"bad answer: status {status}, PNG {png[:8]!r} {size}")
     log(f"[serve] {len(answers)} POSTs -> 200 + 256x256 PNG in {time.time() - t0:.1f} s "
         f"(server start and warmup included); launches {launches}")
-    if not all(launches.values()):
+    if not (launches["mel_fused"] and launches["gru_fwd"]):
         raise AssertionError(f"a kernel of the serving path never launched: {launches}")
 
     # the same batch through the plain versions (CPU), same weights, same z
@@ -503,15 +585,12 @@ def phase_train(card: str) -> dict[str, int]:
         raise AssertionError(f"{cfg.CONFIG_NAME}: batch {e.BATCH_SIZE}, expected {TRAIN_BATCH}")
 
     # the training path, counted from zero: TRAIN_STEPS steps of run_encoder_pretrain
-    mel_kernel.logmel.launches = 0
-    gru_kernel.gru_scan.launches = 0
-    gru_kernel.gru_scan_bwd.launches = 0
+    reset_counts()
     run_dir = os.path.join(cfg.OUTPUT_DIR, f"chip_smoke_encoder_{os.getpid()}")
     t0 = time.time()
     mets = cli.run_encoder_pretrain(cfg, steps=TRAIN_STEPS, device="cuda", run_dir=run_dir,
                                     wav_batches=lambda epoch: [raw] * TRAIN_STEPS)
-    launches = {"mel_fused": mel_kernel.logmel.launches, "gru_fwd": gru_kernel.gru_scan.launches,
-                "gru_bwd": gru_kernel.gru_scan_bwd.launches}
+    launches = read_counts()
     with open(os.path.join(run_dir, "scalars.jsonl")) as f:
         lines = [json.loads(line) for line in f]
     losses = [rec["loss"] for rec in lines]
@@ -519,7 +598,7 @@ def phase_train(card: str) -> dict[str, int]:
         f"set-up included): losses {losses}, last {mets}; launches {launches}")
     if len(losses) != TRAIN_STEPS or not all(isinstance(v, float) and np.isfinite(v) for v in losses):
         raise AssertionError(f"training losses not finite, or not one per step: {losses}")
-    want = {"mel_fused": TRAIN_STEPS, "gru_fwd": 2 * TRAIN_STEPS, "gru_bwd": 2 * TRAIN_STEPS}
+    want = {"mel_fused": TRAIN_STEPS, "gru_fwd": 2 * TRAIN_STEPS, "gru_bwd": 2 * TRAIN_STEPS, "mel_framed": 0}
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want} (K1 1, K2 2, K3 2 per step)")
 
@@ -577,20 +656,223 @@ def phase_train(card: str) -> dict[str, int]:
     return launches
 
 
+def phase_mel_ab(card: str) -> dict[str, int]:
+    """K4's path: the frontend A/B of the three log-mel routes, at the A/B
+    shape and at the birds serve shape. The counted run is one call of each
+    route per shape; the timing loops after it are not counted."""
+    birds = frontend_params_from_cfg(config.cfg_from_file("cfg/birds_3stages.yml").AUDIO)
+    cases = [("A/B", FrontendParams(), ab_wavs()),
+             ("birds serve", birds, tone_batch(birds.max_samples, [birds.max_samples] * BATCH, 6))]
+    inputs, outs = [], []
+    reset_counts()
+    for _, p, wavs in cases:
+        w = torch.from_numpy(wavs).cuda()
+        x = center_pad(preemphasize(w, p.preemphasis), p)
+        n = mel_kernel.num_frames(x.shape[1], p)
+        routes = {
+            "framed (gather + K4)": lambda w=w, p=p: mel_kernel.logmel_framed(w, p),
+            "fused (K1)": lambda x=x, p=p, n=n: mel_kernel.logmel(x, p, n),
+            "plain": lambda x=x, p=p, n=n: mel_kernel.logmel_framed_plain(
+                mel_kernel.frame_rows(x, p, n), p).view(x.shape[0], n, p.n_mels),
+        }
+        inputs.append((routes, w.shape[0] * n))
+        outs.append({name: fn() for name, fn in routes.items()})
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if launches["mel_framed"] != len(cases):
+        raise AssertionError(f"K4 launches {launches}, expected {len(cases)}")
+    for (label, p, wavs), (routes, frames), out in zip(cases, inputs, outs):
+        errs = {name: (y - out["plain"]).abs().max().item() for name, y in out.items() if name != "plain"}
+        if not all(e <= TOL_MEL for e in errs.values()):
+            raise AssertionError(f"[mel_ab] {label}: a route disagrees with the plain version: {errs}")
+        ms = {name: time_ms(fn) for name, fn in routes.items()}
+        log(f"[mel_ab] {card}: {label} B={wavs.shape[0]} wav={wavs.shape[1]} frames={frames}: " + "; ".join(
+            f"{name} {t:.4f} ms ({frames / t * 1e3:.4g} frames/s"
+            + (f", max_abs_err vs plain {errs[name]:.3g})" if name in errs else ")")
+            for name, t in ms.items()))
+    return launches
+
+
+def gan_cfg(path: str, batch: int):
+    cfg = config.cfg_from_file(path)
+    cfg.DATASET_NAME = "synthetic"
+    cfg.TRAIN.BATCH_SIZE = batch
+    return cfg
+
+
+def step_modules(st: gan.GanTrainState) -> dict:
+    mods = {"g": st.models.g, **{f"d{i}": d for i, d in enumerate(st.models.ds)}}
+    if st.models.encoder is not None:
+        mods["enc"] = st.models.encoder
+    return mods
+
+
+def gan_first_step_vs_cpu(path: str) -> gan.GanTrainState:
+    """The first step of the cfg at full width and batch CHECK_BATCH, on the
+    card and on the CPU, from the same seeded weights, batch and noise;
+    raises unless they agree. Returns the card's state, one step in."""
+    cfg = gan_cfg(path, CHECK_BATCH)
+    joint = bool(cfg.TRAIN.JOINT_FT)
+    p = frontend_params_from_cfg(cfg.AUDIO)
+    raw = next(iter(cli.synthetic_gan_batches(cfg)(0)))
+    rng = np.random.default_rng(SEED + 7)
+    z = rng.standard_normal((CHECK_BATCH, int(cfg.GAN.Z_DIM))).astype(np.float32)
+    eps = rng.standard_normal((CHECK_BATCH, int(cfg.GAN.EMBEDDING_DIM))).astype(np.float32)
+    states, mets = {}, {}
+    for dev in ("cuda", "cpu"):
+        states[dev] = gan.init_state(cfg, device=dev)
+        batch = cli.featurize(raw, p, dev) if joint else raw
+        mets[dev] = {k: float(v) for k, v in gan.train_step(states[dev], batch, z, eps).items()}
+    loss_err = {k: abs(v - mets["cpu"][k]) / max(abs(mets["cpu"][k]), 1e-6)
+                for k, v in mets["cuda"].items() if "_acc" not in k}
+    tensor_err, net_err, stat_err, zero = {}, {}, {}, []
+    mods_c, mods_p = step_modules(states["cuda"]), step_modules(states["cpu"])
+    for part, mod in mods_c.items():
+        params_p = dict(mods_p[part].named_parameters())
+        diff2 = norm2 = 0.0
+        for name, pc in mod.named_parameters():
+            gc, gp = pc.grad, params_p[name].grad
+            if gc is None or not gc.abs().max().item() > 0:
+                zero.append(f"{part}.{name}")
+                continue
+            d = gc.cpu() - gp
+            tensor_err[f"{part}.{name}"] = d.abs().max().item() / gp.abs().max().item()
+            diff2 += d.square().sum().item()
+            norm2 += gp.square().sum().item()
+        net_err[part] = (diff2 / norm2) ** 0.5
+        sd_p = mods_p[part].state_dict()
+        for k, v in mod.state_dict().items():
+            if "running" in k:
+                stat_err[f"{part}.{k}"] = (v.cpu() - sd_p[k]).abs().max().item() / max(1.0, sd_p[k].abs().max().item())
+    if zero:
+        raise AssertionError(f"parameters with no gradient on the card: {zero}")
+    worst = {name: max(d, key=d.get) for name, d in (("loss", loss_err), ("net", net_err), ("tensor", tensor_err),
+                                                     ("stats", stat_err))}
+    median = float(np.median(list(tensor_err.values())))
+    log(f"[{'joint' if joint else 'gan'}] first step card vs plain (CPU), batch {CHECK_BATCH}: losses {mets['cuda']}; "
+        f"worst loss rel err {loss_err[worst['loss']]:.3g} ({worst['loss']}; tol {TOL_GAN_LOSS}); grads of "
+        f"{len(tensor_err)} tensors, all non-zero: per network |diff|/|grad| "
+        + " ".join(f"{k} {v:.3g}" for k, v in net_err.items())
+        + f" (tol {TOL_GAN_GRAD_NET}), per tensor max_abs_err/max_abs median {median:.3g} (tol "
+        f"{TOL_GAN_GRAD_MEDIAN}) worst {tensor_err[worst['tensor']]:.3g} ({worst['tensor']}; tol "
+        f"{TOL_GAN_GRAD_TENSOR}); BN running stats of {len(stat_err)} tensors, worst "
+        f"{stat_err[worst['stats']]:.3g} ({worst['stats']}; tol {TOL_GAN_STATS})")
+    if not (loss_err[worst["loss"]] <= TOL_GAN_LOSS and net_err[worst["net"]] <= TOL_GAN_GRAD_NET
+            and median <= TOL_GAN_GRAD_MEDIAN and tensor_err[worst["tensor"]] <= TOL_GAN_GRAD_TENSOR
+            and stat_err[worst["stats"]] <= TOL_GAN_STATS):
+        raise AssertionError("the card's GAN step disagrees with the plain path")
+    return states["cuda"]
+
+
+def gan_step_parts_ms(st: gan.GanTrainState, raw: dict, p: FrontendParams, joint: bool) -> dict[str, float]:
+    """Device ms of one GAN step's parts (CUDA events): featurize (joint:
+    host wav → log-mel, K1), G forward (batch to the device, the encoder in
+    joint mode, CA, G), D phase (forward, backward, Adam), G phase (the Ds'
+    forward, backward through D and G, Adam, EMA); the parts of
+    gan.train_step, spelled out to put events between them."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    b = cli.featurize(raw, p, "cuda") if joint else raw
+    ev[1].record()
+    batch = gan.prepare_batch(st, b)
+    fwd = gan.g_forward(st, batch, *gan.step_noise(st, batch["images"][0].shape[0]))
+    ev[2].record()
+    gan.d_phase(st, batch, fwd)
+    ev[3].record()
+    gan.g_phase(st, batch, fwd)
+    ev[4].record()
+    st.step += 1
+    torch.cuda.synchronize()
+    names = ("featurize", "g_forward", "d_phase", "g_phase")
+    parts = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    if not joint:
+        del parts["featurize"]
+    return parts
+
+
+def phase_gan(card: str, path: str) -> dict[str, int]:
+    """GAN training of ``path`` at full width: the counted run through
+    run_gan_training, the first step card vs CPU, then step time, parts and
+    peak memory at batch GAN_BATCH."""
+    cfg = gan_cfg(path, GAN_BATCH)
+    joint = bool(cfg.TRAIN.JOINT_FT)
+    tag = "joint" if joint else "gan"
+    g, c = cfg.GAN, cfg.TRAIN.COEFF
+    p = frontend_params_from_cfg(cfg.AUDIO)
+    log(f"[{tag}] {path}: batch {cfg.TRAIN.BATCH_SIZE}, {cfg.TREE.BRANCH_NUM} stages to "
+        f"{64 * 2 ** (int(cfg.TREE.BRANCH_NUM) - 1)} px, GF {g.GF_DIM} DF {g.DF_DIM} R_NUM {g.R_NUM} Z {g.Z_DIM} "
+        f"CA {g.EMBEDDING_DIM} TEXT {cfg.TEXT.DIMENSION}, KL {c.KL} COLOR {c.COLOR_LOSS} DISTILL {c.DISTILL}, "
+        f"EMA {cfg.TRAIN.EMA_G} warmup {cfg.TRAIN.EMA_WARMUP}, Adam lr {cfg.TRAIN.GENERATOR_LR} betas "
+        f"({cfg.TRAIN.ADAM_BETA1}, {cfg.TRAIN.ADAM_BETA2}), images {cfg.DATA.IMAGE_DTYPE} {cfg.DATA.SHIP_SCALES}"
+        + (f"; encoder convs {list(cfg.ENCODER.CONV_CHANNELS)} bi-GRU H={cfg.ENCODER.RNN_HIDDEN}, "
+           f"wavs up to {p.max_samples} samples" if joint else ""))
+    if (int(cfg.TREE.BRANCH_NUM), int(g.GF_DIM), int(g.DF_DIM), int(g.R_NUM), int(g.Z_DIM),
+            int(g.EMBEDDING_DIM)) != (3, 64, 64, 2, 100, 128):
+        raise AssertionError(f"{path} is not the full birds width")
+
+    # the path, counted from zero: GAN_STEPS steps of run_gan_training
+    reset_counts()
+    run_dir = os.path.join(cfg.OUTPUT_DIR, f"chip_smoke_{tag}_{os.getpid()}")
+    t0 = time.time()
+    mets = cli.run_gan_training(cfg, steps=GAN_STEPS, device="cuda", run_dir=run_dir, log_every=1)
+    launches = read_counts()
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    log(f"[{tag}] run_gan_training {GAN_STEPS} steps in {time.time() - t0:.1f} s (set-up included): "
+        f"g_loss {[r['g_loss'] for r in lines]}, d_loss {[r['d_loss'] for r in lines]}, last {mets}; "
+        f"launches {launches}")
+    if [r["step"] for r in lines] != list(range(1, GAN_STEPS + 1)) or not all(
+            isinstance(v, float) and np.isfinite(v) for r in lines for k, v in r.items() if k != "step"):
+        raise AssertionError(f"GAN metrics not finite, or not one line per step: {lines}")
+    n = GAN_STEPS if joint else 0
+    want = {"mel_fused": n, "gru_fwd": 2 * n, "gru_bwd": 2 * n, "mel_framed": 0}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+
+    st = gan_first_step_vs_cpu(path)
+
+    # step time at batch GAN_BATCH on host batches made ahead (featurize,
+    # the wav → log-mel on the card, is part of a joint step)
+    raws = list(cli.synthetic_gan_batches(cfg)(1))
+    stream = itertools.cycle(raws)
+    step = (lambda raw: gan.train_step(st, cli.featurize(raw, p, "cuda"))) if joint else \
+        (lambda raw: gan.train_step(st, raw))
+    for _ in range(2):
+        step(next(stream))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(GAN_STEP_RUNS):
+        t0 = time.perf_counter()
+        m = step(next(stream))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if not all(np.isfinite(float(v)) for v in m.values()):
+        raise AssertionError(f"GAN metrics not finite after {st.step} steps: {m}")
+    parts = [gan_step_parts_ms(st, next(stream), p, joint) for _ in range(3)]
+    med = {k: float(np.median([pt[k] for pt in parts])) for k in parts[0]}
+    t_med = float(np.median(times))
+    log(f"[{tag}] {card}: batch {GAN_BATCH} step ({'featurize + ' if joint else ''}train_step) ms "
+        f"median {t_med:.2f} min {min(times):.2f} max {max(times):.2f} (n={len(times)}), "
+        f"{GAN_BATCH / t_med * 1e3:.1f} images/s; device ms (median of 3) "
+        + " ".join(f"{k} {v:.3f}" for k, v in med.items())
+        + f" sum {sum(med.values()):.3f}; max_memory_allocated {peak:.0f} MiB; g_loss after {st.step} steps "
+        f"{float(m['g_loss']):.4f}")
+    return launches
+
+
 def main() -> None:
     name, smi = phase_device()
     phase_build()
     kernels = phase_kernels()
-    serve = phase_serve(f"{name} ({smi})")
-    train = phase_train(f"{name} ({smi})")
+    card = f"{name} ({smi})"
+    paths = {"serve": phase_serve(card), "train": phase_train(card), "mel_ab": phase_mel_ab(card),
+             "gan": phase_gan(card, "cfg/birds_3stages.yml"), "joint": phase_gan(card, "cfg/birds_joint_ft.yml")}
     rows = []
-    for kname, route, src, replaces in (
-        ("mel_fused", "cuda", "s2i_tpu_torch/csrc/mel_fused.cu", "s2i_tpu/ops/mel_kernel.py:151"),
-        ("gru_fwd", "cuda", "s2i_tpu_torch/csrc/gru_fwd.cu", "s2i_tpu/ops/gru_kernel.py:48"),
-        ("gru_bwd", "cuda", "s2i_tpu_torch/csrc/gru_bwd.cu", "s2i_tpu/ops/gru_kernel.py:67"),
-    ):
-        by_path = {"serve": serve.get(kname, 0), "train": train[kname]}
-        rows.append({"name": kname, "route": route, "source": src, "replaces": replaces,
+    for kname, (_, src, replaces) in KERNELS.items():
+        by_path = {path: counts[kname] for path, counts in paths.items()}
+        rows.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": sum(by_path.values()), "launches_by_path": by_path, **kernels[kname]})
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,7 +1,8 @@
 """s2i_tpu_torch: the PyTorch/CUDA port of direct speech-to-image translation.
 
-The serving path and the encoder distillation pretraining of the JAX
-package (``s2i_tpu``), rebuilt on PyTorch for an NVIDIA Hopper card:
+The serving path, the encoder distillation pretraining and the GAN training
+(frozen embeddings and joint finetune) of the JAX package (``s2i_tpu``),
+rebuilt on PyTorch for an NVIDIA Hopper card:
 
     wav → audio.frontend.extract_features   (log-mel: csrc/mel_fused.cu)
         → models.encoder.SpeechEncoder      (bi-GRU: csrc/gru_fwd.cu,
@@ -11,12 +12,19 @@ package (``s2i_tpu``), rebuilt on PyTorch for an NVIDIA Hopper card:
 
     cli.run_encoder_pretrain → train.encoder.encoder_train_step:
         SpeechEncoder in train mode → train.losses.distillation_loss → Adam
+    cli.run_gan_training → train.gan.train_step:
+        [SpeechEncoder →] CA sample → GNet → models.discriminator.DNet ×3,
+        D phase and G phase with Adam, EMA
+
+``ops.mel_kernel.logmel_framed`` (csrc/mel_framed.cu) computes the log-mel
+from pre-framed rows, for the frontend A/B only.
 
 Entry points (``pipeline.SpeechToImage``, ``serving.make_server``,
 ``audio.frontend.extract_features``, ``train.encoder.init_encoder_state``,
-``cli.run_encoder_pretrain``) run on ``device="cuda"`` unless the
-caller passes ``device="cpu"``; without a card they raise instead of
-drifting to the CPU. On a CPU tensor every kernel wrapper runs its plain
-PyTorch version, which is how the tests hold the port against the JAX
-package. The package imports nothing of JAX or of ``s2i_tpu``.
+``train.gan.init_state``, ``cli.run_encoder_pretrain``,
+``cli.run_gan_training``) run on ``device="cuda"`` unless the caller passes
+``device="cpu"``; without a card they raise instead of drifting to the CPU.
+On a CPU tensor every kernel wrapper runs its plain PyTorch version, which
+is how the tests hold the port against the JAX package. The package imports
+nothing of JAX or of ``s2i_tpu``.
 """

@@ -1,16 +1,19 @@
-"""Training loops of the port, the counterpart of the encoder-pretrain half of
+"""Training loops of the port, the counterpart of the training half of
 ``s2i_tpu/cli.py``:
 
     from s2i_tpu_torch import config, cli
     cfg = config.cfg_from_file("cfg/pretrain_encoder_birds.yml")
     cli.run_encoder_pretrain(cfg, steps=100)            # on the card
+    cfg = config.cfg_from_file("cfg/birds_3stages.yml")  # or birds_joint_ft.yml
+    cli.run_gan_training(cfg, steps=100)
 
-Batches come from the synthetic corpus (``DATASET_NAME: synthetic``) or, for
-real data, from wav batches ``{"wav", "wav_len", "teacher", "class_id"}``
-that ``featurize`` turns into log-mel features on the device (K1 on the
-card). The StackGAN speech loader, checkpoints, resume and TensorBoard are
-not ported yet (``ROADMAP.md`` items 11-12): a real-data run takes its wav
-batches from the caller.
+Batches come from the synthetic corpora (``DATASET_NAME: synthetic``) or,
+for real data, from the caller: encoder batches as wavs ``{"wav",
+"wav_len", "teacher", "class_id"}``, GAN batches ``{"images",
+"embedding", "class_id"}`` (plus ``"wav"``, ``"wav_len"`` and ``"teacher"``
+in joint mode). ``featurize`` turns wavs into log-mel features on the device
+(K1 on the card). The StackGAN loaders, checkpoints, resume, TensorBoard
+and sample grids are not ported yet (``ROADMAP.md`` items 11-12).
 """
 
 from __future__ import annotations
@@ -22,11 +25,13 @@ import os
 import time
 from typing import Any, Callable, Iterable
 
+import numpy as np
 import torch
 
 from s2i_tpu_torch.audio.frontend import FrontendParams, extract_features, frontend_params_from_cfg
-from s2i_tpu_torch.data import SyntheticSpeechDataset
+from s2i_tpu_torch.data import SyntheticGanDataset, SyntheticSpeechDataset, synthetic_wavs
 from s2i_tpu_torch.device import resolve_device
+from s2i_tpu_torch.train import gan
 from s2i_tpu_torch.train.encoder import encoder_train_step, init_encoder_state
 
 
@@ -59,12 +64,12 @@ def make_run_dir(cfg, tag: str) -> str:
 
 
 def featurize(raw: dict, p: FrontendParams, device: str | torch.device = "cuda") -> dict:
-    """A wav batch ``{"wav" [B, n], "wav_len" [B], "teacher", "class_id"}`` →
-    an encoder batch ``{"feats", "feat_mask", "teacher", "class_id"}`` with
-    the features computed on ``device``."""
+    """A wav batch ``{"wav" [B, n], "wav_len" [B], ...}`` → the same batch
+    with ``feats`` / ``feat_mask`` computed on ``device`` in place of the
+    wav (for the encoder: ``{"feats", "feat_mask", "teacher", "class_id"}``)."""
     feats, mask = extract_features(raw["wav"], p, wav_len=raw["wav_len"], device=device)
-    return {"feats": feats, "feat_mask": mask, "teacher": raw["teacher"],
-            "class_id": raw["class_id"]}
+    rest = {k: v for k, v in raw.items() if k not in ("wav", "wav_len")}
+    return {"feats": feats, "feat_mask": mask, **rest}
 
 
 def speech_batch_factory(
@@ -131,6 +136,107 @@ def run_encoder_pretrain(
                     t0, seen = time.time(), 0
             if steps is not None and state.step >= steps:
                 break
+    finally:
+        logger.close()
+    print(f"run dir: {run_dir}")
+    return {k: float(v) for k, v in mets.items()}
+
+
+def _synthetic_gan(cfg) -> SyntheticGanDataset:
+    return SyntheticGanDataset(
+        branch_num=int(cfg.TREE.BRANCH_NUM),
+        base_size=int(cfg.TREE.BASE_SIZE),
+        emb_dim=int(cfg.TEXT.DIMENSION),
+        seed=int(cfg.SEED),
+        image_dtype=str(cfg.DATA.IMAGE_DTYPE),
+        ship_scales=str(cfg.DATA.SHIP_SCALES),
+    )
+
+
+def synthetic_gan_batches(cfg) -> Callable[[int], Iterable[dict]]:
+    """epoch → host batches of the synthetic GAN corpus, ``TRAIN.BATCH_SIZE``
+    each; in joint mode (``TRAIN.JOINT_FT``) each example carries a wav of
+    :func:`synthetic_wavs` and distills toward its own embedding."""
+    joint = bool(cfg.TRAIN.JOINT_FT)
+    ds = _synthetic_gan(cfg)
+    bs = int(cfg.TRAIN.BATCH_SIZE)
+    steps = max(1, ds.n // bs)
+    if joint:
+        p = frontend_params_from_cfg(cfg.AUDIO)
+        wavs, lens = synthetic_wavs(ds.class_id, p.max_samples, seed=int(cfg.SEED))
+
+    def factory(epoch: int):
+        rng = np.random.default_rng(int(cfg.SEED) + epoch)
+        for _ in range(steps):
+            idx = rng.integers(0, ds.n, size=bs)
+            b = ds.batch(idx)
+            if joint:
+                b.update(wav=wavs[idx], wav_len=lens[idx], teacher=b["embedding"])
+            yield b
+
+    return factory
+
+
+def gan_batch_factory(
+    cfg,
+    device: str | torch.device = "cuda",
+    batches: Callable[[int], Iterable[dict]] | None = None,
+) -> Callable[[int], Iterable[dict]]:
+    """epoch → GAN batches: the synthetic corpus, or ``batches(epoch)``. In
+    joint mode (``TRAIN.JOINT_FT``) each batch carries its captions' wavs,
+    featurized here on ``device`` (K1 on the card), as the JAX package's
+    real-data joint loader does."""
+    if cfg.DATASET_NAME == "synthetic":
+        batches = synthetic_gan_batches(cfg)
+    elif batches is None:
+        raise NotImplementedError(
+            f"DATASET_NAME={cfg.DATASET_NAME!r}: the StackGAN loader is not ported yet; "
+            "pass batches(epoch) yielding {'images', 'embedding', 'class_id'} batches "
+            "(+ 'wav', 'wav_len', 'teacher' with TRAIN.JOINT_FT)"
+        )
+    if not bool(cfg.TRAIN.JOINT_FT):
+        return batches
+    p = frontend_params_from_cfg(cfg.AUDIO)
+    return lambda epoch: (featurize(b, p, device) for b in batches(epoch))
+
+
+def run_gan_training(
+    cfg,
+    steps: int | None = None,
+    epochs: int | None = None,
+    device: str | torch.device = "cuda",
+    run_dir: str | None = None,
+    batches: Callable[[int], Iterable[dict]] | None = None,
+    log_every: int = 20,
+) -> dict:
+    """GAN training (frozen embeddings, or the joint encoder + GAN finetune
+    when ``TRAIN.JOINT_FT``) for ``epochs`` (default ``TRAIN.MAX_EPOCH``) or
+    until ``steps`` steps, whichever ends first, from weights seeded with
+    ``cfg.SEED``. Every ``log_every`` steps it appends the step's metrics and
+    ``images_per_sec`` to ``<run_dir>/scalars.jsonl``. Returns the last
+    step's metrics."""
+    dev = resolve_device(device)
+    run_dir = run_dir or make_run_dir(cfg, "train")
+    state = gan.init_state(cfg, device=dev)
+    factory = gan_batch_factory(cfg, dev, batches)
+    logger = ScalarLogger(run_dir)
+    mets: dict = {}
+    done = lambda: steps is not None and state.step >= steps  # noqa: E731
+    t0, seen = time.time(), 0
+    try:
+        for epoch in range(epochs or int(cfg.TRAIN.MAX_EPOCH)):
+            if done():
+                break
+            for batch in factory(epoch):  # checked after each step: no batch is made in vain
+                seen += len(batch["images"][0])
+                mets = gan.train_step(state, batch)
+                if log_every and state.step % log_every == 0:
+                    scalars = {k: float(v) for k, v in mets.items()}
+                    scalars["images_per_sec"] = seen / max(time.time() - t0, 1e-9)
+                    logger.log(state.step, scalars)
+                    t0, seen = time.time(), 0
+                if done():
+                    break
     finally:
         logger.close()
     print(f"run dir: {run_dir}")

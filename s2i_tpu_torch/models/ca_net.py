@@ -1,7 +1,9 @@
 """Conditioning Augmentation, the counterpart of ``s2i_tpu/models/ca_net.py``.
 
 emb [B, t_dim] → fc(4·c_dim) → GLU → (μ, logσ²). Serving uses μ (the JAX
-package's eval mode); the reparameterized sample belongs to training.
+package's eval mode); training draws the reparameterized sample
+``c = μ + eps · exp(logσ² / 2)`` (:meth:`CANet.sample`, ``eps`` given by the
+caller) and adds :func:`kl_divergence` to the generator loss.
 """
 
 from __future__ import annotations
@@ -22,3 +24,14 @@ class CANet(nn.Module):
         """(μ, logσ²), each [B, c_dim]."""
         x = glu(self.fc(emb), dim=-1)
         return x[:, : self.c_dim], x[:, self.c_dim :]
+
+    def sample(self, emb: torch.Tensor, eps: torch.Tensor):
+        """(c, μ, logσ²) with ``c = μ + eps · exp(logσ² / 2)``, eps [B, c_dim]."""
+        mu, logvar = self(emb)
+        return mu + eps * torch.exp(0.5 * logvar), mu, logvar
+
+
+def kl_divergence(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+    """KL(N(μ, σ) ‖ N(0, 1)) as the StackGAN lineage's ``KL_loss``: the mean
+    of the per-element integrand over batch AND condition dims."""
+    return -0.5 * torch.mean(1.0 + logvar - mu.square() - logvar.exp())

@@ -1,10 +1,12 @@
-"""Generator building blocks (NCHW), the counterpart of the generator subset
-of ``s2i_tpu/models/layers.py``.
+"""Generator and discriminator building blocks (NCHW), the counterpart of
+``s2i_tpu/models/layers.py``.
 
 The modules use the StackGAN-v2 torch layout (``nn.Sequential`` indices
-included), so a state_dict written by ``bridge.gnet_state_dict`` loads with
-``strict=True``. Every ``GAN.UPSAMPLE_MODE`` of the JAX package is the same
-math as nearest-2x followed by a 3x3 conv, which is the one form here.
+included), so a state_dict written by ``bridge.gnet_state_dict`` or
+``bridge.dnet_state_dict`` loads with ``strict=True``. Every
+``GAN.UPSAMPLE_MODE`` of the JAX package is the same math as nearest-2x
+followed by a 3x3 conv, and every ``GAN.S2D`` layout the same math as the
+plain one, which is the one form here.
 """
 
 from __future__ import annotations
@@ -101,3 +103,17 @@ class ResBlockGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.block(x)
+
+
+def down_block(in_ch: int, out_ch: int) -> nn.Sequential:
+    """4×4 stride-2 conv → BN → LeakyReLU(0.2) (D downsampling unit)."""
+    return nn.Sequential(
+        nn.Conv2d(in_ch, out_ch, 4, stride=2, padding=1, bias=False),
+        BatchNorm(out_ch),
+        nn.LeakyReLU(0.2),
+    )
+
+
+def block3x3_leaky_relu(in_ch: int, out_ch: int) -> nn.Sequential:
+    """3×3 conv → BN → LeakyReLU(0.2) (D same-resolution unit)."""
+    return nn.Sequential(conv3x3(in_ch, out_ch), BatchNorm(out_ch), nn.LeakyReLU(0.2))

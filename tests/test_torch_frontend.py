@@ -1,5 +1,6 @@
-"""The port's audio frontend (s2i_tpu_torch/audio/) against the JAX
-package's, on the CPU where the port runs its plain PyTorch log-mel.
+"""The port's audio frontend (s2i_tpu_torch/audio/, ops/mel_kernel.py)
+against the JAX package's, on the CPU where the port runs its plain PyTorch
+log-mel (the fused path K1 and the framed path K4).
 
 Signals are tones plus a broadband noise floor, so every mel bin carries
 energy: the log amplifies float32 rounding in near-empty bins. Tolerance
@@ -18,7 +19,7 @@ import torch
 from s2i_tpu import config as jax_config
 from s2i_tpu.audio import frontend as jf
 from s2i_tpu.audio import wavio as jwavio
-from s2i_tpu.ops.mel_kernel import logmel_pallas_fused
+from s2i_tpu.ops.mel_kernel import logmel_pallas, logmel_pallas_fused
 from s2i_tpu_torch import config as port_config
 from s2i_tpu_torch.audio import frontend as tf
 from s2i_tpu_torch.audio import wavio as twavio
@@ -80,6 +81,36 @@ def test_plain_logmel_matches_pallas_kernel_interpret():
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize(
+    "kw,n",
+    [
+        (dict(win_length=250, hop_length=33, n_fft=256), 7001),  # n_fft > win_length
+        (dict(center=True, preemphasis=0.97), 8777),
+    ],
+    ids=["nfft-gt-win", "center-preemph"],
+)
+def test_logmel_framed_matches_pallas_kernel_interpret(kw, n):
+    """K4's path: the port's frame gather against the JAX package's, and
+    logmel_framed (plain on the CPU) against logmel_pallas itself (interpret
+    mode), frame count included."""
+    jp, tp = _params(**kw)
+    wav = _signals(n, b=2)
+    want = np.asarray(logmel_pallas(jnp.asarray(wav), jp, block_frames=16))
+    got = mel_kernel.logmel_framed(torch.from_numpy(wav), tp)
+    assert got.shape == want.shape == (2, jp.num_frames(n), tp.n_mels)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+
+    x = tf.center_pad(tf.preemphasize(torch.from_numpy(wav), tp.preemphasis), tp)
+    f = mel_kernel.num_frames(x.shape[1], tp)
+    rows = mel_kernel.frame_rows(x, tp, f)
+    xj = np.pad(x.numpy(), ((0, 0), (0, tp.n_fft - tp.win_length)))
+    idx = np.arange(f)[:, None] * tp.hop_length + np.arange(tp.n_fft)[None, :]
+    assert rows.shape == (2 * f, tp.n_fft) and rows.is_contiguous()
+    np.testing.assert_array_equal(rows.numpy(), xj[:, idx].reshape(2 * f, tp.n_fft))
+    np.testing.assert_allclose(mel_kernel.logmel_frames(rows, tp).numpy(),
+                               mel_kernel.logmel_framed_plain(rows, tp).numpy(), rtol=0, atol=0)
+
+
 def test_constant_tables_and_cfg_match_jax():
     for kw in ({}, dict(win_length=250, hop_length=33, n_fft=256, htk_mel=True)):
         jp, tp = _params(**kw)
@@ -116,3 +147,7 @@ def test_frontend_rejects_what_it_cannot_frame():
         tf.extract_features(np.zeros((1, 100), np.float32), tp, device="cpu")
     with pytest.raises(ValueError, match="n_frames"):
         mel_kernel.logmel(torch.zeros(1, 1000), tp, 99)
+    with pytest.raises(ValueError, match="shorter than one window"):
+        mel_kernel.logmel_framed(torch.zeros(1, 100), tp)
+    with pytest.raises(ValueError, match="n_fft"):
+        mel_kernel.logmel_frames(torch.zeros(4, 400), tp)

@@ -11,7 +11,9 @@ normalized features (that error over the utterance's standard deviation),
 1e-5 on GRU states (H-term dot products over T dependent steps), 1e-4 on
 images (the encoder and generator behind them). GRU gradients: 5e-6 of the
 largest magnitude of each output (dW_h and db_h sum T·B products, dxw and
-dh0 carry the sum over T reverse steps)."""
+dh0 carry the sum over T reverse steps). One GAN step, card vs CPU: losses
+1e-4 relative, gradients 1e-3 of each tensor's largest magnitude (BN batch
+statistics over 4 examples), BN running statistics 1e-4 absolute."""
 
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from s2i_tpu_torch import config
 from s2i_tpu_torch.audio import frontend as tf
 from s2i_tpu_torch.ops import gru_kernel, mel_kernel
 from s2i_tpu_torch.pipeline import SpeechToImage, build_encoder, build_generator
+from s2i_tpu_torch.train import gan
 
 pytestmark = pytest.mark.gpu
 
@@ -59,6 +62,55 @@ def test_logmel_kernel_matches_plain(card, kw, n):
     assert mel_kernel.logmel.launches == before + 1
     want = mel_kernel.logmel_plain(wav, p, frames)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "kw,n",
+    [(dict(), 16000), (dict(win_length=250, hop_length=33, n_fft=256, center=True, preemphasis=0.97), 7000)],
+    ids=["birds", "nfft-gt-win"],
+)
+def test_logmel_framed_kernel_matches_plain(card, kw, n):
+    """K4 on a ragged batch (zero tails) against its plain version."""
+    p = tf.FrontendParams(**kw)
+    wav = _signals(n)
+    wav[1, n // 3:] = 0.0
+    wav[2, 500:] = 0.0
+    w = torch.from_numpy(wav).to(card)
+    x = tf.center_pad(tf.preemphasize(w, p.preemphasis), p)
+    rows = mel_kernel.frame_rows(x, p, mel_kernel.num_frames(x.shape[1], p))
+    before = mel_kernel.logmel_frames.launches
+    got = mel_kernel.logmel_frames(rows, p)
+    torch.cuda.synchronize()
+    assert mel_kernel.logmel_frames.launches == before + 1
+    want = mel_kernel.logmel_framed_plain(rows, p)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(mel_kernel.logmel_framed(w, p).cpu().numpy(),
+                               mel_kernel.logmel_framed(torch.from_numpy(wav), p).numpy(), atol=1e-4, rtol=0)
+
+
+def test_gan_step_on_the_card_matches_cpu(card):
+    cfg = config.apply_overrides(config.default_cfg(), [
+        "TREE.BRANCH_NUM=2", "GAN.GF_DIM=4", "GAN.DF_DIM=4", "GAN.Z_DIM=8", "GAN.EMBEDDING_DIM=16",
+        "GAN.R_NUM=1", "TEXT.DIMENSION=32", "TRAIN.COEFF.COLOR_LOSS=50.0"])
+    rng = np.random.default_rng(0)
+    batch = {"images": (rng.integers(0, 256, (4, 128, 128, 3), dtype=np.uint8),),
+             "embedding": rng.standard_normal((4, 32)).astype(np.float32), "class_id": np.arange(4)}
+    z, eps = rng.standard_normal((4, 8)).astype(np.float32), rng.standard_normal((4, 16)).astype(np.float32)
+    states = {dev: gan.init_state(cfg, device=dev) for dev in ("cuda", "cpu")}
+    mets = {dev: gan.train_step(st, batch, z, eps) for dev, st in states.items()}
+    for k, v in mets["cpu"].items():
+        if "_acc" not in k:
+            assert abs(mets["cuda"][k].item() - v.item()) <= 1e-4 * abs(v.item()), k
+    mods = {dev: [st.models.g, *st.models.ds] for dev, st in states.items()}
+    for mc, mp in zip(mods["cuda"], mods["cpu"]):
+        for (name, pc), pp in zip(mc.named_parameters(), mp.parameters()):
+            assert pc.grad.abs().max() > 0, name
+            err = (pc.grad.cpu() - pp.grad).abs().max().item()
+            assert err <= 1e-3 * pp.grad.abs().max().item(), name
+        sd = mp.state_dict()
+        for k, v in mc.state_dict().items():
+            if "running" in k:
+                np.testing.assert_allclose(v.cpu().numpy(), sd[k].numpy(), atol=1e-4, rtol=0, err_msg=k)
 
 
 def test_extract_features_on_the_card_matches_cpu(card):

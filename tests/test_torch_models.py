@@ -1,6 +1,8 @@
 """The port's models (s2i_tpu_torch/models/) against the JAX package's Flax
-modules in eval mode, with the Flax weights carried over by
-s2i_tpu_torch/bridge.py and loaded with strict=True.
+modules, with the Flax weights carried over by s2i_tpu_torch/bridge.py and
+loaded with strict=True: the encoder and generator in eval mode, the
+discriminators in eval and train mode (BN running statistics included), the
+CA's training-time sample and KL.
 
 Every parameter and batch statistic is random, away from any init value
 (zero biases, unit BN stats), so a mis-mapped tensor cannot hide
@@ -17,9 +19,13 @@ import pytest
 import torch
 
 from s2i_tpu.models.ca_net import CANet as JaxCANet
+from s2i_tpu.models.ca_net import kl_divergence as jax_kl
+from s2i_tpu.models.discriminator import build_discriminators
 from s2i_tpu.models.encoder import SpeechEncoder as JaxEncoder
 from s2i_tpu.models.generator import GNet as JaxGNet
 from s2i_tpu_torch import bridge
+from s2i_tpu_torch.models.ca_net import CANet, kl_divergence
+from s2i_tpu_torch.models.discriminator import DNet
 from s2i_tpu_torch.models.encoder import SpeechEncoder, conv_pads
 from s2i_tpu_torch.models.generator import GNet
 from tests._flax_random import random_variables
@@ -99,3 +105,64 @@ def test_gnet_and_ca_match_flax(branch_num):
         np.testing.assert_allclose(
             got.permute(0, 2, 3, 1).numpy(), np.asarray(ref), atol=ATOL, rtol=0
         )
+
+
+def _nchw(x):
+    return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
+
+
+@pytest.mark.parametrize("scale", [64, 128, 256])
+def test_dnet_matches_flax_eval_and_train_logits(scale):
+    """D64/128/256: the eval-mode forward, then train_logits in train mode
+    (logits and the BN running statistics folded in JAX's call order)."""
+    df, ef, b = 4, 6, 3
+    rng = np.random.default_rng(scale)
+    real, fake = (rng.uniform(-1, 1, (b, scale, scale, 3)).astype(np.float32) for _ in range(2))
+    c, c_wrong = (rng.standard_normal((b, ef)).astype(np.float32) for _ in range(2))
+    jd = build_discriminators({64: 1, 128: 2, 256: 3}[scale], df, ef)[-1]
+    variables = random_variables(jd.init, real, c, seed=scale)
+    td = _load(DNet(scale, df, ef), bridge.dnet_state_dict(variables["params"], variables["batch_stats"]))
+
+    want = jax.jit(functools.partial(jd.apply, train=False))(variables, real, c)
+    with torch.no_grad():
+        got = td(_nchw(real), torch.from_numpy(c))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, rtol=0)
+
+    apply = jax.jit(functools.partial(jd.apply, method="train_logits", mutable=["batch_stats"]))
+    want, new = apply(variables, real, fake, c, c_wrong)
+    td.train()
+    got = td.train_logits(_nchw(real), _nchw(fake), torch.from_numpy(c), torch.from_numpy(c_wrong))
+    assert got[3] is got[1]  # uncond_wrong is uncond_real
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), atol=ATOL, rtol=0)
+    want_sd = bridge.dnet_state_dict(variables["params"], new["batch_stats"])
+    for k, v in td.state_dict().items():
+        if "running" in k:
+            np.testing.assert_allclose(v.numpy(), want_sd[k], atol=ATOL, rtol=0, err_msg=k)
+
+
+def test_dnet_without_condition_and_wrong_condition_width():
+    d = DNet(64, 4, 6, b_condition=False)
+    cond, uncond = d.eval()(torch.zeros(2, 3, 64, 64))
+    assert cond is None and uncond.shape == (2,)
+    with pytest.raises(ValueError, match="ef_dim"):
+        DNet(64, 4, 6)(torch.zeros(2, 3, 64, 64), torch.zeros(2, 5))
+
+
+def test_ca_sample_and_kl_match_flax():
+    t_dim, c_dim, b = 12, 6, 5
+    rng = np.random.default_rng(9)
+    emb = rng.standard_normal((b, t_dim)).astype(np.float32)
+    eps = rng.standard_normal((b, c_dim)).astype(np.float32)
+    ca = JaxCANet(c_dim=c_dim)
+    params = random_variables(ca.init, emb, seed=4, train=False)["params"]
+    c, mu, logvar = ca.apply({"params": params}, emb, eps=eps)
+    tca = CANet(t_dim, c_dim)
+    tca.load_state_dict({"fc.weight": torch.from_numpy(np.asarray(params["Dense_0"]["kernel"]).T.copy()),
+                         "fc.bias": torch.from_numpy(np.asarray(params["Dense_0"]["bias"]))})
+    t_c, t_mu, t_logvar = tca.sample(torch.from_numpy(emb), torch.from_numpy(eps))
+    for g, w in ((t_c, c), (t_mu, mu), (t_logvar, logvar)):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(kl_divergence(t_mu, t_logvar).item(), float(jax_kl(mu, logvar)),
+                               atol=ATOL, rtol=1e-5)
