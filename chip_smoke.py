@@ -8,9 +8,9 @@ Phases, each of which passes or raises (nothing is caught):
                process per source, all at once);
   3. kernels - each kernel against its plain PyTorch version on the card, at
                the shapes the serving path gives it (plus a second log-mel
-               geometry), at the training shapes (batch 64) and, for the
-               framed log-mel K4, at the frontend A/B shape, with times from
-               CUDA events;
+               geometry), at the encoder training shapes (batch 64), at the
+               joint finetune's (batch 24) and, for the framed log-mel K4, at
+               the frontend A/B shape, with times from CUDA events;
   4. serve   - the birds config (cfg/birds_3stages.yml) at full width with
                seeded random weights behind the HTTP server: POSTed WAVs come
                back as 256 px PNGs, the kernels' launch counters show that
@@ -64,6 +64,7 @@ from s2i_tpu_torch.audio.frontend import (
     preemphasize,
 )
 from s2i_tpu_torch.audio.wavio import write_wav
+from s2i_tpu_torch.data import synthetic_wavs
 from s2i_tpu_torch.device import resolve_device
 from s2i_tpu_torch.models.layers import BatchNorm
 from s2i_tpu_torch.ops import build, gru_kernel, mel_kernel
@@ -120,19 +121,21 @@ TOL_TRAIN_STATS = 1e-4
 # term relative to itself; the BN running statistics of G, the Ds (and the
 # encoder) relative to max(1, |stat|). The gradients are held as a whole per
 # network (G with CA, each D, the encoder: the norm of the difference over
-# the norm), by their median tensor (max-abs error over the tensor's largest
-# magnitude) and, for every tensor, against being wrong in scale or sign. At
-# init a few tensors' gradients are small differences of large parts: G's
-# init stage (its fc and BN over 4 examples) and D256's deep 3×3 convs, where
-# the real and fake passes cancel. There two correct float32 steps (cuDNN's
-# and the CPU's) differ by several percent of the tensor's largest element,
-# while the losses, the BN statistics and most tensors agree closely; those
-# tensors carry ~1% of their network's gradient norm (this script prints
-# all three measures).
+# the norm), by their median tensor and by their worst tensor (max-abs error
+# over the tensor's largest magnitude). Two float32 steps on the same CPU
+# that differ only in their convolution code are as far apart as the card
+# is from the CPU (tools/cudnn_probe.py): a few LeakyReLU inputs lie within
+# rounding of 0, so their slope is 1 in one step and 0.2 in the other, and
+# at 4×4 maps over 4 examples one such flip moves a D256 weight's gradient
+# by 15% of its largest element; and the G phase runs against Ds that
+# Adam's first step moved by ±lr per weight, by the sign of its gradient,
+# also where that gradient is at rounding level. The tolerances sit just
+# above what the card reads (per network 1.12e-2, median 4.4e-3, worst
+# tensor 0.151), which is that CPU-vs-CPU spread.
 TOL_GAN_LOSS = 1e-4
-TOL_GAN_GRAD_NET = 3e-2
-TOL_GAN_GRAD_MEDIAN = 1e-2
-TOL_GAN_GRAD_TENSOR = 0.5
+TOL_GAN_GRAD_NET = 1.5e-2
+TOL_GAN_GRAD_MEDIAN = 6e-3
+TOL_GAN_GRAD_TENSOR = 0.2
 TOL_GAN_STATS = 1e-4
 
 
@@ -380,6 +383,19 @@ def phase_kernels() -> dict:
     gru_bwd = kernel_gru_bwd(g64)
     for row in (mel, gru, gru_bwd):
         row["max_abs_err"] = max(row["max_abs_err"], row.get("train", row)["max_abs_err"])
+
+    # the joint finetune's shapes: batch 24 of the path's own ragged WAVs,
+    # and the GRU at B=24 (a partial second row group in K3), one row
+    # all-masked, non-zero h0
+    jwavs, _ = synthetic_wavs(np.arange(GAN_BATCH) % 8, p.max_samples, seed=SEED)
+    mel["joint"] = kernel_logmel(p, jwavs, "birds joint")
+    lens = np.random.default_rng(SEED + 1).integers(1, t + 1, GAN_BATCH)
+    lens[0], lens[-1] = t, 0
+    g24 = gru_setup(t, GAN_BATCH, h, c_in, lens, h0_scale=0.5)
+    gru["joint"] = kernel_gru_fwd(g24)
+    gru_bwd["joint"] = kernel_gru_bwd(g24)
+    for row in (mel, gru, gru_bwd):
+        row["max_abs_err"] = max(row["max_abs_err"], row["joint"]["max_abs_err"])
 
     # K4 at its A/B shape, and at the birds serve shape (the function of K1)
     framed = kernel_mel_framed(FrontendParams(), ab_wavs(), "A/B")
@@ -707,84 +723,103 @@ def step_modules(st: gan.GanTrainState) -> dict:
     return mods
 
 
+def first_step_inputs(path: str, batch: int = CHECK_BATCH) -> tuple:
+    """(cfg at ``batch``, host batch, z, eps) of the first-step check."""
+    cfg = gan_cfg(path, batch)
+    raw = next(iter(cli.synthetic_gan_batches(cfg)(0)))
+    rng = np.random.default_rng(SEED + 7)
+    z = rng.standard_normal((batch, int(cfg.GAN.Z_DIM))).astype(np.float32)
+    eps = rng.standard_normal((batch, int(cfg.GAN.EMBEDDING_DIM))).astype(np.float32)
+    return cfg, raw, z, eps
+
+
+def first_step(cfg, raw: dict, z: np.ndarray, eps: np.ndarray, dev: str) -> tuple[gan.GanTrainState, dict]:
+    """One step from the seeded init on ``dev``: (state, record), the record
+    holding the metrics, every gradient and every BN running statistic on
+    the CPU, keyed by network."""
+    st = gan.init_state(cfg, device=dev)
+    batch = cli.featurize(raw, frontend_params_from_cfg(cfg.AUDIO), dev) if cfg.TRAIN.JOINT_FT else raw
+    mets = {k: float(v) for k, v in gan.train_step(st, batch, z, eps).items()}
+    rec = {"mets": mets, "grads": {}, "stats": {}}
+    for part, mod in step_modules(st).items():
+        for name, prm in mod.named_parameters():
+            rec["grads"][f"{part}.{name}"] = None if prm.grad is None else prm.grad.detach().cpu()
+        for k, v in mod.state_dict().items():
+            if "running" in k:
+                rec["stats"][f"{part}.{k}"] = v.detach().cpu()
+    return st, rec
+
+
+def step_errors(got: dict, want: dict) -> dict:
+    """``got``'s first-step record against ``want``'s: each metric's relative
+    error, each gradient's max-abs error over the tensor's largest magnitude,
+    each network's |diff|/|grad|, each BN statistic's error over
+    max(1, |stat|), and the gradients that are missing or all zero."""
+    loss = {k: abs(v - want["mets"][k]) / max(abs(want["mets"][k]), 1e-6)
+            for k, v in got["mets"].items() if "_acc" not in k}
+    tensor, zero, sums = {}, [], {}
+    for name, gw in want["grads"].items():
+        gg = got["grads"][name]
+        if gg is None or not gg.abs().max().item() > 0:
+            zero.append(name)
+            continue
+        d = gg - gw
+        tensor[name] = d.abs().max().item() / gw.abs().max().item()
+        s = sums.setdefault(name.split(".")[0], [0.0, 0.0])
+        s[0] += d.square().sum().item()
+        s[1] += gw.square().sum().item()
+    stats = {k: (got["stats"][k] - v).abs().max().item() / max(1.0, v.abs().max().item())
+             for k, v in want["stats"].items()}
+    return {"loss": loss, "tensor": tensor, "zero": zero, "stats": stats,
+            "net": {part: (d2 / n2) ** 0.5 for part, (d2, n2) in sums.items()}}
+
+
 def gan_first_step_vs_cpu(path: str) -> gan.GanTrainState:
     """The first step of the cfg at full width and batch CHECK_BATCH, on the
     card and on the CPU, from the same seeded weights, batch and noise;
     raises unless they agree. Returns the card's state, one step in."""
-    cfg = gan_cfg(path, CHECK_BATCH)
-    joint = bool(cfg.TRAIN.JOINT_FT)
-    p = frontend_params_from_cfg(cfg.AUDIO)
-    raw = next(iter(cli.synthetic_gan_batches(cfg)(0)))
-    rng = np.random.default_rng(SEED + 7)
-    z = rng.standard_normal((CHECK_BATCH, int(cfg.GAN.Z_DIM))).astype(np.float32)
-    eps = rng.standard_normal((CHECK_BATCH, int(cfg.GAN.EMBEDDING_DIM))).astype(np.float32)
-    states, mets = {}, {}
-    for dev in ("cuda", "cpu"):
-        states[dev] = gan.init_state(cfg, device=dev)
-        batch = cli.featurize(raw, p, dev) if joint else raw
-        mets[dev] = {k: float(v) for k, v in gan.train_step(states[dev], batch, z, eps).items()}
-    loss_err = {k: abs(v - mets["cpu"][k]) / max(abs(mets["cpu"][k]), 1e-6)
-                for k, v in mets["cuda"].items() if "_acc" not in k}
-    tensor_err, net_err, stat_err, zero = {}, {}, {}, []
-    mods_c, mods_p = step_modules(states["cuda"]), step_modules(states["cpu"])
-    for part, mod in mods_c.items():
-        params_p = dict(mods_p[part].named_parameters())
-        diff2 = norm2 = 0.0
-        for name, pc in mod.named_parameters():
-            gc, gp = pc.grad, params_p[name].grad
-            if gc is None or not gc.abs().max().item() > 0:
-                zero.append(f"{part}.{name}")
-                continue
-            d = gc.cpu() - gp
-            tensor_err[f"{part}.{name}"] = d.abs().max().item() / gp.abs().max().item()
-            diff2 += d.square().sum().item()
-            norm2 += gp.square().sum().item()
-        net_err[part] = (diff2 / norm2) ** 0.5
-        sd_p = mods_p[part].state_dict()
-        for k, v in mod.state_dict().items():
-            if "running" in k:
-                stat_err[f"{part}.{k}"] = (v.cpu() - sd_p[k]).abs().max().item() / max(1.0, sd_p[k].abs().max().item())
-    if zero:
-        raise AssertionError(f"parameters with no gradient on the card: {zero}")
-    worst = {name: max(d, key=d.get) for name, d in (("loss", loss_err), ("net", net_err), ("tensor", tensor_err),
-                                                     ("stats", stat_err))}
-    median = float(np.median(list(tensor_err.values())))
-    log(f"[{'joint' if joint else 'gan'}] first step card vs plain (CPU), batch {CHECK_BATCH}: losses {mets['cuda']}; "
-        f"worst loss rel err {loss_err[worst['loss']]:.3g} ({worst['loss']}; tol {TOL_GAN_LOSS}); grads of "
-        f"{len(tensor_err)} tensors, all non-zero: per network |diff|/|grad| "
-        + " ".join(f"{k} {v:.3g}" for k, v in net_err.items())
+    cfg, raw, z, eps = first_step_inputs(path)
+    st, rec = first_step(cfg, raw, z, eps, "cuda")
+    _, rec_cpu = first_step(cfg, raw, z, eps, "cpu")
+    e = step_errors(rec, rec_cpu)
+    if e["zero"]:
+        raise AssertionError(f"parameters with no gradient on the card: {e['zero']}")
+    worst = {name: max(e[name], key=e[name].get) for name in ("loss", "net", "tensor", "stats")}
+    median = float(np.median(list(e["tensor"].values())))
+    log(f"[{'joint' if cfg.TRAIN.JOINT_FT else 'gan'}] first step card vs plain (CPU), batch {CHECK_BATCH}: "
+        f"losses {rec['mets']}; worst loss rel err {e['loss'][worst['loss']]:.3g} ({worst['loss']}; tol "
+        f"{TOL_GAN_LOSS}); grads of {len(e['tensor'])} tensors, all non-zero: per network |diff|/|grad| "
+        + " ".join(f"{k} {v:.3g}" for k, v in e["net"].items())
         + f" (tol {TOL_GAN_GRAD_NET}), per tensor max_abs_err/max_abs median {median:.3g} (tol "
-        f"{TOL_GAN_GRAD_MEDIAN}) worst {tensor_err[worst['tensor']]:.3g} ({worst['tensor']}; tol "
-        f"{TOL_GAN_GRAD_TENSOR}); BN running stats of {len(stat_err)} tensors, worst "
-        f"{stat_err[worst['stats']]:.3g} ({worst['stats']}; tol {TOL_GAN_STATS})")
-    if not (loss_err[worst["loss"]] <= TOL_GAN_LOSS and net_err[worst["net"]] <= TOL_GAN_GRAD_NET
-            and median <= TOL_GAN_GRAD_MEDIAN and tensor_err[worst["tensor"]] <= TOL_GAN_GRAD_TENSOR
-            and stat_err[worst["stats"]] <= TOL_GAN_STATS):
+        f"{TOL_GAN_GRAD_MEDIAN}) worst {e['tensor'][worst['tensor']]:.3g} ({worst['tensor']}; tol "
+        f"{TOL_GAN_GRAD_TENSOR}); BN running stats of {len(e['stats'])} tensors, worst "
+        f"{e['stats'][worst['stats']]:.3g} ({worst['stats']}; tol {TOL_GAN_STATS})")
+    if not (e["loss"][worst["loss"]] <= TOL_GAN_LOSS and e["net"][worst["net"]] <= TOL_GAN_GRAD_NET
+            and median <= TOL_GAN_GRAD_MEDIAN and e["tensor"][worst["tensor"]] <= TOL_GAN_GRAD_TENSOR
+            and e["stats"][worst["stats"]] <= TOL_GAN_STATS):
         raise AssertionError("the card's GAN step disagrees with the plain path")
-    return states["cuda"]
+    return st
 
 
 def gan_step_parts_ms(st: gan.GanTrainState, raw: dict, p: FrontendParams, joint: bool) -> dict[str, float]:
-    """Device ms of one GAN step's parts (CUDA events): featurize (joint:
-    host wav → log-mel, K1), G forward (batch to the device, the encoder in
-    joint mode, CA, G), D phase (forward, backward, Adam), G phase (the Ds'
-    forward, backward through D and G, Adam, EMA); the parts of
-    gan.train_step, spelled out to put events between them."""
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-    ev[0].record()
+    """Device ms of one GAN step's parts, from CUDA events that
+    ``gan.train_step`` records as each part ends: featurize (joint: host wav
+    → log-mel, K1), G forward (batch to the device, the encoder in joint
+    mode, CA, G), D phase (forward, backward, Adam), G phase (the Ds'
+    forward, backward through D and G, Adam, EMA)."""
+    events = {}
+
+    def mark(part: str) -> None:
+        events[part] = torch.cuda.Event(enable_timing=True)
+        events[part].record()
+
+    mark("start")
     b = cli.featurize(raw, p, "cuda") if joint else raw
-    ev[1].record()
-    batch = gan.prepare_batch(st, b)
-    fwd = gan.g_forward(st, batch, *gan.step_noise(st, batch["images"][0].shape[0]))
-    ev[2].record()
-    gan.d_phase(st, batch, fwd)
-    ev[3].record()
-    gan.g_phase(st, batch, fwd)
-    ev[4].record()
-    st.step += 1
+    mark("featurize")
+    gan.train_step(st, b, mark=mark)
     torch.cuda.synchronize()
-    names = ("featurize", "g_forward", "d_phase", "g_phase")
-    parts = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    names = list(events)
+    parts = {n: events[prev].elapsed_time(events[n]) for prev, n in zip(names, names[1:])}
     if not joint:
         del parts["featurize"]
     return parts

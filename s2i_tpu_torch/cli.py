@@ -182,11 +182,11 @@ def gan_batch_factory(
     device: str | torch.device = "cuda",
     batches: Callable[[int], Iterable[dict]] | None = None,
 ) -> Callable[[int], Iterable[dict]]:
-    """epoch → GAN batches: the synthetic corpus, or ``batches(epoch)``. In
-    joint mode (``TRAIN.JOINT_FT``) each batch carries its captions' wavs,
-    featurized here on ``device`` (K1 on the card), as the JAX package's
-    real-data joint loader does."""
-    if cfg.DATASET_NAME == "synthetic":
+    """epoch → GAN batches: ``batches(epoch)`` when given, else the synthetic
+    corpus (``DATASET_NAME: synthetic``). In joint mode (``TRAIN.JOINT_FT``)
+    each batch carries its captions' wavs, featurized here on ``device`` (K1
+    on the card), as the JAX package's real-data joint loader does."""
+    if batches is None and cfg.DATASET_NAME == "synthetic":
         batches = synthetic_gan_batches(cfg)
     elif batches is None:
         raise NotImplementedError(

@@ -127,11 +127,6 @@ class SyntheticGanDataset:
             images = [((im + 1.0) * 127.5 + 0.5).clip(0, 255).astype(np.uint8) for im in images]
         return {"images": tuple(images), "embedding": self.embeddings[idx], "class_id": self.class_id[idx]}
 
-    def batches(self, batch_size: int, steps: int, seed: int = 0):
-        rng = np.random.default_rng(seed)
-        for _ in range(steps):
-            yield self.batch(rng.integers(0, self.n, size=batch_size))
-
 
 def synthetic_wavs(class_id: np.ndarray, max_samples: int, seed: int = 0,
                    min_samples: int = 3000, sample_rate: int = 16000) -> tuple[np.ndarray, np.ndarray]:

@@ -30,6 +30,7 @@ they say, in float32 whatever ``DTYPE.COMPUTE`` says.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 from torch import nn
@@ -132,6 +133,7 @@ class GanTrainState:
     @property
     def device(self) -> torch.device:
         return next(self.models.g.parameters()).device
+
 
 def init_state(cfg, device: str | torch.device = "cuda") -> GanTrainState:
     """Models of ``cfg`` on ``device`` in train mode with weights drawn from
@@ -331,11 +333,15 @@ def g_phase(state: GanTrainState, batch: dict, fwd: GForward) -> dict:
     return mets
 
 
-def train_step(state: GanTrainState, batch: dict, z=None, eps=None) -> dict:
+def train_step(state: GanTrainState, batch: dict, z=None, eps=None,
+               mark: Callable[[str], None] | None = None) -> dict:
     """One GAN step on a host batch ``{"images": (top scale or every scale,
     NHWC), "embedding" | "feats" + "feat_mask" + "teacher", "class_id"}``;
     updates ``state`` in place and returns the metrics as 0-d tensors on the
-    device. ``z`` / ``eps`` replace the step's own noise draw."""
+    device. ``z`` / ``eps`` replace the step's own noise draw. ``mark(part)``,
+    when given, is called as each part ends (``"g_forward"``, ``"d_phase"``,
+    ``"g_phase"``), e.g. to record a CUDA event there."""
+    mark = mark or (lambda part: None)
     batch = prepare_batch(state, batch)
     if z is None or eps is None:
         z, eps = step_noise(state, batch["images"][0].shape[0])
@@ -343,7 +349,10 @@ def train_step(state: GanTrainState, batch: dict, z=None, eps=None) -> dict:
         z = torch.as_tensor(z, device=state.device).float()
         eps = torch.as_tensor(eps, device=state.device).float()
     fwd = g_forward(state, batch, z, eps)
+    mark("g_forward")
     mets = d_phase(state, batch, fwd)
+    mark("d_phase")
     mets.update(g_phase(state, batch, fwd))
+    mark("g_phase")
     state.step += 1
     return mets

@@ -125,8 +125,8 @@ def test_extract_features_on_the_card_matches_cpu(card):
 
 @pytest.mark.parametrize(
     "t,b,h",
-    [(64, 5, 96), (12, 3, 16), (8, 100, 512)],  # the last needs two row chunks
-    ids=["h96", "h16", "b100-h512"],
+    [(64, 5, 96), (12, 3, 16), (8, 100, 512), (128, 24, 512)],  # b100: two row chunks; b24: joint's batch
+    ids=["h96", "h16", "b100-h512", "joint-b24"],
 )
 def test_gru_kernel_matches_plain(card, t, b, h):
     rng = np.random.default_rng(t + b + h)
@@ -174,8 +174,9 @@ def _assert_grads_close(got, want):
 
 @pytest.mark.parametrize(
     "t,b,h",
-    [(12, 3, 16), (64, 5, 96), (8, 100, 512), (128, 64, 512)],  # b=100: two row chunks
-    ids=["h16", "h96", "b100-h512", "encoder-b64"],
+    # b=100: two row chunks; b=24 (the joint finetune's batch): a partial row group
+    [(12, 3, 16), (64, 5, 96), (8, 100, 512), (128, 64, 512), (128, 24, 512)],
+    ids=["h16", "h96", "b100-h512", "encoder-b64", "joint-b24"],
 )
 def test_gru_bwd_kernel_matches_plain(card, t, b, h):
     dev, dys = _gru_args(t, b, h, card)

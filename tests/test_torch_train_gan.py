@@ -325,7 +325,9 @@ def test_synthetic_gan_dataset_matches_jax():
     for kw in (dict(image_dtype="uint8", ship_scales="top"), dict()):
         got = SyntheticGanDataset(num_classes=2, examples_per_class=2, branch_num=2, emb_dim=32, **kw)
         want = JaxGanDataset(num_classes=2, examples_per_class=2, branch_num=2, emb_dim=32, **kw)
-        for a, b in zip(got.batches(3, 2, seed=4), want.batches(3, 2, seed=4)):
+        rng = np.random.default_rng(4)
+        for idx in (rng.integers(0, got.n, size=3) for _ in range(2)):
+            a, b = got.batch(idx), want.batch(idx)
             assert a.keys() == b.keys()
             for x, y in zip(a["images"], b["images"]):
                 np.testing.assert_array_equal(x, y)
@@ -389,6 +391,24 @@ def test_run_gan_training_logs_scalars(tmp_path, monkeypatch, mode):
     assert lines[-1]["images_per_sec"] > 0 and lines[-1]["g_loss"] == mets["g_loss"]
     assert ("distill_mse" in mets) == (mode == "joint")
     assert all(np.isfinite(v) for v in mets.values())
+
+
+def test_gan_batch_factory_prefers_the_callers_batches():
+    cfg, _ = cfgs("TREE.BRANCH_NUM=1", "DATASET_NAME=synthetic")
+    mine = dataset(cfg).batch(np.array([3, 2, 1, 0]))
+    got = list(cli.gan_batch_factory(cfg, "cpu", lambda epoch: [mine])(0))
+    assert len(got) == 1 and got[0] is mine
+    synth = list(cli.gan_batch_factory(cfg, "cpu")(0))
+    assert len(synth) == cli._synthetic_gan(cfg).n // B
+
+
+def test_train_step_marks_its_parts_in_order():
+    cfg, _ = cfgs("TREE.BRANCH_NUM=1")
+    st = gan.init_state(cfg, device="cpu")
+    parts = []
+    mets = gan.train_step(st, dataset(cfg).batch(np.arange(B)), mark=parts.append)
+    assert parts == ["g_forward", "d_phase", "g_phase"]
+    assert st.step == 1 and np.isfinite(mets["g_loss"].item())
 
 
 def test_gan_entry_points_need_a_card_unless_told_cpu(tmp_path):
