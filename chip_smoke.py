@@ -10,7 +10,12 @@ Phases, each of which passes or raises (nothing is caught):
                the shapes the serving path gives it (plus a second log-mel
                geometry), at the encoder training shapes (batch 64), at the
                joint finetune's (batch 24) and, for the framed log-mel K4, at
-               the frontend A/B shape, with times from CUDA events;
+               the frontend A/B shape, with times from CUDA events. The GRU
+               kernels run as the paths call them, both directions of the
+               layer in one launch (plus one direction alone at batch 64),
+               beside cuDNN's GRU on the same weights; the backward runs
+               twice and must be bitwise repeatable, and its parts (gate
+               SGEMM, chain, dW_h SGEMM + db_h) are timed;
   4. serve   - the birds config (cfg/birds_3stages.yml) at full width with
                seeded random weights behind the HTTP server: POSTed WAVs come
                back as 256 px PNGs, the kernels' launch counters show that
@@ -21,9 +26,9 @@ Phases, each of which passes or raises (nothing is caught):
                frames, bi-GRU H=512, 200 classes) through run_encoder_pretrain
                on 64 ragged synthetic WAVs: featurize (K1) → encoder (K2) →
                loss → backward (K3) → Adam; the launch counters show each
-               step went through the three kernels, the first step matches
-               the same step on the CPU through the plain versions, and the
-               step time is measured;
+               step went through the three kernels, once each, the first
+               step matches the same step on the CPU through the plain
+               versions, and the step time is measured;
   6. mel_ab  - K4's path, the frontend A/B of the JAX package's
                scripts/perf_cert.py::cert_mel: log-mel of a seeded 8 × 64000
                standard-normal wav (then the birds serve batch) through the
@@ -258,35 +263,44 @@ def ab_wavs() -> np.ndarray:
     return np.random.default_rng(SEED).standard_normal(AB_SHAPE).astype(np.float32)
 
 
-def gru_setup(t: int, b: int, h: int, c_in: int, lens, h0_scale: float = 0.0) -> dict:
-    """Seeded GRU inputs on the card: x, nn.GRU-layout weights, the port's
-    xw / w_h, a mask from ``lens`` and h0 (zeros, or ``h0_scale`` * N(0, 1))."""
+def gru_setup(t: int, b: int, h: int, c_in: int, lens, h0_scale: float = 0.0, d: int = 2) -> dict:
+    """Seeded inputs of one GRU layer of ``d`` directions on the card: x,
+    nn.GRU-layout weights [D, ...], the port's stacked xw [D, T, B, 3H] /
+    w_h [D, H, 3H], a mask from ``lens`` and h0 [D, B, H] (zeros, or
+    ``h0_scale`` * N(0, 1))."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rnd = lambda *s, scale=1.0: scale * torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
     g = dict(x=rnd(t, b, c_in))
-    g["w_ih"], g["w_hh"] = rnd(3 * h, c_in, scale=c_in ** -0.5), rnd(3 * h, h, scale=h ** -0.5)
-    g["b_ih"], g["b_hh"] = rnd(3 * h, scale=0.1), rnd(3 * h, scale=0.1)
-    g["xw"] = torch.nn.functional.linear(g["x"], g["w_ih"], g["b_ih"]).contiguous()
-    g["w_h"] = g["w_hh"].t().contiguous()
-    g["h0"] = rnd(b, h, scale=h0_scale) if h0_scale else torch.zeros(b, h, device="cuda")
+    g["w_ih"], g["w_hh"] = rnd(d, 3 * h, c_in, scale=c_in ** -0.5), rnd(d, 3 * h, h, scale=h ** -0.5)
+    g["b_ih"], g["b_hh"] = rnd(d, 3 * h, scale=0.1), rnd(d, 3 * h, scale=0.1)
+    g["xw"] = torch.stack([torch.nn.functional.linear(g["x"], g["w_ih"][i], g["b_ih"][i]) for i in range(d)])
+    g["w_h"] = g["w_hh"].transpose(1, 2).contiguous()
+    g["h0"] = rnd(d, b, h, scale=h0_scale) if h0_scale else torch.zeros(d, b, h, device="cuda")
     lens = torch.as_tensor(lens, device="cuda")
     g["mask"] = (torch.arange(t, device="cuda")[:, None] < lens[None, :]).float()
     return g
 
 
 def cudnn_gru(g: dict) -> torch.nn.GRU:
-    """The yardstick: cuDNN's GRU holding the same weights."""
-    ref = torch.nn.GRU(g["x"].shape[-1], g["w_h"].shape[0]).cuda()
+    """The yardstick: cuDNN's GRU (bidirectional for D=2) holding the same weights."""
+    d = g["w_h"].shape[0]
+    ref = torch.nn.GRU(g["x"].shape[-1], g["w_h"].shape[1], bidirectional=d == 2).cuda()
     with torch.no_grad():
-        for name, v in (("weight_ih_l0", g["w_ih"]), ("weight_hh_l0", g["w_hh"]),
-                        ("bias_ih_l0", g["b_ih"]), ("bias_hh_l0", g["b_hh"])):
-            getattr(ref, name).copy_(v)
+        for i, sfx in enumerate(("", "_reverse")[:d]):
+            for name, v in (("weight_ih", g["w_ih"]), ("weight_hh", g["w_hh"]),
+                            ("bias_ih", g["b_ih"]), ("bias_hh", g["b_hh"])):
+                getattr(ref, f"{name}_l0{sfx}").copy_(v[i])
     return ref
+
+
+def gru_label(xw) -> str:
+    d, t, b, h3 = xw.shape
+    return f"D={d} T={t} B={b} H={h3 // 3}"
 
 
 def kernel_gru_fwd(g: dict) -> dict:
     xw, w_h, b_hh, mask, h0 = (g[k] for k in ("xw", "w_h", "b_hh", "mask", "h0"))
-    t, b, h = xw.shape[0], xw.shape[1], w_h.shape[0]
+    d, t, b, h = xw.shape[0], xw.shape[1], xw.shape[2], w_h.shape[1]
     got = gru_kernel.gru_scan(xw, w_h, b_hh, mask, h0)
     torch.cuda.synchronize()
     want = gru_kernel.gru_scan_plain(xw, w_h, b_hh, mask, h0)
@@ -295,31 +309,50 @@ def kernel_gru_fwd(g: dict) -> dict:
         raise AssertionError(f"GRU kernel disagrees with its plain version: {err} > {TOL_GRU}")
     k_ms = time_ms(lambda: gru_kernel.gru_scan(xw, w_h, b_hh, mask, h0))
     p_ms = time_ms(lambda: gru_kernel.gru_scan_plain(xw, w_h, b_hh, mask, h0), reps=5)
-    # yardstick: cuDNN's GRU with the same weights at full-length masks (it
-    # also does the input projection, which the port leaves to F.linear)
+    # yardstick: cuDNN's GRU, both directions, with the same weights at
+    # full-length masks (it also does the input projection, which the port
+    # leaves to F.linear)
     ref = cudnn_gru(g)
     with torch.no_grad():
         full = torch.ones_like(mask)
-        x, h0_ref = g["x"], h0[None]
-        lib_err = (ref(x, h0_ref)[0] - gru_kernel.gru_scan(xw, w_h, b_hh, full, h0)).abs().max().item()
+        x, h0_ref = g["x"], h0
+        ours = gru_kernel.gru_scan(xw, w_h, b_hh, full, h0).permute(1, 2, 0, 3).reshape(t, b, d * h)
+        lib_err = (ref(x, h0_ref)[0] - ours).abs().max().item()
         l_ms = time_ms(lambda: ref(x, h0_ref))
-    flops = 2.0 * t * b * h * 3 * h + 12.0 * t * b * h  # h @ W_h + the gates
+    flops = d * (2.0 * t * b * h * 3 * h + 12.0 * t * b * h)  # h @ W_h + the gates, every direction
     nbytes = 4.0 * (xw.numel() + w_h.numel() + b_hh.numel() + mask.numel() + h0.numel() + got.numel())
     b_ms, b_by = bound(flops, nbytes)
-    log(f"[kernels] gru_fwd T={t} B={b} H={h}: max_abs_err={err:.3g} kernel_ms={k_ms:.4f} "
+    log(f"[kernels] gru_fwd {gru_label(xw)}: max_abs_err={err:.3g} kernel_ms={k_ms:.4f} "
         f"({1e3 * k_ms / t:.2f} us/step) plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
-        f"(cuDNN, max_abs_err vs kernel at full masks {lib_err:.3g}) bound_ms={b_ms:.4f} ({b_by})")
+        f"(cuDNN {'bidirectional ' if d == 2 else ''}GRU, max_abs_err vs kernel at full masks {lib_err:.3g}) "
+        f"bound_ms={b_ms:.4f} ({b_by})")
     return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+
+
+def gru_bwd_parts_ms(args) -> dict[str, float]:
+    """Device ms of K3's parts (median of 5 calls, by the chain's time), from
+    the CUDA events the kernel records between its launches."""
+    runs = []
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        gru_kernel.gru_scan_bwd(*args, events=ev)
+        torch.cuda.synchronize()
+        runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    gates, chain, dw = sorted(runs, key=lambda r: r[1])[2]
+    return {"gate_sgemm": gates, "chain": chain, "dw_sgemm_db": dw}
 
 
 def kernel_gru_bwd(g: dict) -> dict:
     xw, w_h, b_hh, mask, h0 = (g[k] for k in ("xw", "w_h", "b_hh", "mask", "h0"))
-    t, b, h = xw.shape[0], xw.shape[1], w_h.shape[0]
+    d, t, b, h = xw.shape[0], xw.shape[1], xw.shape[2], w_h.shape[1]
     ys = gru_kernel.gru_scan_plain(xw, w_h, b_hh, mask, h0)
     dys = torch.randn(ys.shape, generator=torch.Generator(device="cuda").manual_seed(SEED + 1), device="cuda")
     args = (xw, w_h, b_hh, mask, h0, ys, dys)
     got = gru_kernel.gru_scan_bwd(*args)
+    again = gru_kernel.gru_scan_bwd(*args)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+        raise AssertionError("two calls of the GRU backward kernel on the same inputs differ")
     want = gru_kernel.gru_scan_bwd_plain(*args)
     errs = {name: ((a - w).abs().max().item(), w.abs().max().item())
             for name, a, w in zip(("dxw", "dw_h", "db_h", "dh0"), got, want)}
@@ -328,27 +361,30 @@ def kernel_gru_bwd(g: dict) -> dict:
             raise AssertionError(f"GRU backward kernel disagrees with its plain version on {name}: "
                                  f"{err} > {TOL_GRU_BWD} * {scale}")
     k_ms = time_ms(lambda: gru_kernel.gru_scan_bwd(*args))
+    parts = gru_bwd_parts_ms(args)
     p_ms = time_ms(lambda: gru_kernel.gru_scan_bwd_plain(*args), reps=3)
-    # yardstick: cuDNN's GRU forward+backward minus its forward, full masks,
-    # same weights and h0 (its backward also gives dx and dW_ih)
+    # yardstick: cuDNN's GRU (both directions) forward+backward minus its
+    # forward, full masks, same weights and h0 (its backward also gives dx
+    # and dW_ih)
     ref = cudnn_gru(g)
     x = g["x"].clone().requires_grad_()
-    h0_ref = h0[None]
     leaves = [x, *ref.parameters()]
-    f_ms = time_ms(lambda: ref(x, h0_ref))
-    fb_ms = time_ms(lambda: torch.autograd.grad(ref(x, h0_ref)[0], leaves, dys))
+    dys_ref = dys.permute(1, 2, 0, 3).reshape(t, b, d * h)
+    f_ms = time_ms(lambda: ref(x, h0))
+    fb_ms = time_ms(lambda: torch.autograd.grad(ref(x, h0)[0], leaves, dys_ref))
     l_ms = fb_ms - f_ms
-    # three products of 2·T·B·H·3H (gate recompute, dhg @ W_h^T, h^T dhg) + the gates
-    flops = 3 * 2.0 * t * b * h * 3 * h + 40.0 * t * b * h
+    # three products of 2·T·B·H·3H per direction (gate recompute, dhg @ W_h^T, h^T dhg) + the gates
+    flops = d * (3 * 2.0 * t * b * h * 3 * h + 40.0 * t * b * h)
     nbytes = 4.0 * (sum(a.numel() for a in args) + sum(a.numel() for a in got))
     b_ms, b_by = bound(flops, nbytes)
     rel = " ".join(f"{k}={e:.3g}/{s_:.3g}" for k, (e, s_) in errs.items())
-    log(f"[kernels] gru_bwd T={t} B={b} H={h}: max_abs_err/max_abs {rel} (tol {TOL_GRU_BWD} relative) "
-        f"kernel_ms={k_ms:.4f} ({1e3 * k_ms / t:.2f} us/step) plain_ms={p_ms:.4f} "
-        f"library_ms={l_ms:.4f} (cuDNN GRU fwd+bwd {fb_ms:.4f} - fwd {f_ms:.4f}, full masks) "
-        f"bound_ms={b_ms:.4f} ({b_by})")
+    log(f"[kernels] gru_bwd {gru_label(xw)}: max_abs_err/max_abs {rel} (tol {TOL_GRU_BWD} relative; two calls "
+        f"bitwise equal) kernel_ms={k_ms:.4f} ({1e3 * k_ms / t:.2f} us/step; parts ms "
+        + " ".join(f"{k} {v:.4f}" for k, v in parts.items())
+        + f") plain_ms={p_ms:.4f} library_ms={l_ms:.4f} (cuDNN {'bidirectional ' if d == 2 else ''}GRU "
+        f"fwd+bwd {fb_ms:.4f} - fwd {f_ms:.4f}, full masks) bound_ms={b_ms:.4f} ({b_by})")
     return dict(max_abs_err=max(e for e, _ in errs.values()), ms=k_ms, plain_ms=p_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=l_ms, parts_ms=parts)
 
 
 def train_lengths(n_samples: int) -> np.ndarray:
@@ -370,7 +406,8 @@ def phase_kernels() -> dict:
         f"kernel_ms={k2:.4f} plain_ms={pl2:.4f}")
     mel["max_abs_err"] = max(mel["max_abs_err"], err2)
 
-    # GRU at the encoder's shapes: T=1024/8=128 steps, B=8, H=512, input 256
+    # GRU at the encoder's shapes, both directions of the layer in one call:
+    # T=1024/8=128 steps, B=8, H=512, input 256
     t, h, c_in = 128, int(cfg.ENCODER.RNN_HIDDEN), int(cfg.ENCODER.CONV_CHANNELS[-1])
     gru = kernel_gru_fwd(gru_setup(t, BATCH, h, c_in, [t, 100, 64, 1, t, 77, 120, 0]))  # ragged, one all-masked
 
@@ -381,12 +418,16 @@ def phase_kernels() -> dict:
     g64 = gru_setup(t, TRAIN_BATCH, h, c_in, lens, h0_scale=0.5)
     gru["train"] = kernel_gru_fwd(g64)
     gru_bwd = kernel_gru_bwd(g64)
+    # one direction alone (a cfg with RNN_BIDIRECTIONAL: False), same batch
+    g64_1 = gru_setup(t, TRAIN_BATCH, h, c_in, lens, h0_scale=0.5, d=1)
+    gru["train_one_direction"] = kernel_gru_fwd(g64_1)
+    gru_bwd["train_one_direction"] = kernel_gru_bwd(g64_1)
     for row in (mel, gru, gru_bwd):
-        row["max_abs_err"] = max(row["max_abs_err"], row.get("train", row)["max_abs_err"])
+        row["max_abs_err"] = max(row["max_abs_err"], row.get("train", row)["max_abs_err"],
+                                 row.get("train_one_direction", row)["max_abs_err"])
 
     # the joint finetune's shapes: batch 24 of the path's own ragged WAVs,
-    # and the GRU at B=24 (a partial second row group in K3), one row
-    # all-masked, non-zero h0
+    # and the GRU at B=24, one row all-masked, non-zero h0
     jwavs, _ = synthetic_wavs(np.arange(GAN_BATCH) % 8, p.max_samples, seed=SEED)
     mel["joint"] = kernel_logmel(p, jwavs, "birds joint")
     lens = np.random.default_rng(SEED + 1).integers(1, t + 1, GAN_BATCH)
@@ -550,6 +591,8 @@ def phase_serve(card: str) -> dict[str, int]:
         f"device ms frontend {parts['frontend']:.3f} encoder {parts['encoder']:.3f} "
         f"generator {parts['generator']:.3f}; max_memory_allocated {peak:.0f} MiB; "
         f"launches per batch mel_fused {per_batch[0]:g} gru_fwd {per_batch[1]:g}")
+    if per_batch != (1, 1):
+        raise AssertionError(f"launches per batch {per_batch}, expected K1 and K2 once each")
     return launches
 
 
@@ -614,9 +657,9 @@ def phase_train(card: str) -> dict[str, int]:
         f"set-up included): losses {losses}, last {mets}; launches {launches}")
     if len(losses) != TRAIN_STEPS or not all(isinstance(v, float) and np.isfinite(v) for v in losses):
         raise AssertionError(f"training losses not finite, or not one per step: {losses}")
-    want = {"mel_fused": TRAIN_STEPS, "gru_fwd": 2 * TRAIN_STEPS, "gru_bwd": 2 * TRAIN_STEPS, "mel_framed": 0}
+    want = {"mel_fused": TRAIN_STEPS, "gru_fwd": TRAIN_STEPS, "gru_bwd": TRAIN_STEPS, "mel_framed": 0}
     if launches != want:
-        raise AssertionError(f"launches {launches}, expected {want} (K1 1, K2 2, K3 2 per step)")
+        raise AssertionError(f"launches {launches}, expected {want} (K1, K2 and K3 once per step)")
 
     # the same first step on the card and on the CPU through the plain
     # versions: same seeded weights, same batch
@@ -860,7 +903,7 @@ def phase_gan(card: str, path: str) -> dict[str, int]:
             isinstance(v, float) and np.isfinite(v) for r in lines for k, v in r.items() if k != "step"):
         raise AssertionError(f"GAN metrics not finite, or not one line per step: {lines}")
     n = GAN_STEPS if joint else 0
-    want = {"mel_fused": n, "gru_fwd": 2 * n, "gru_bwd": 2 * n, "mel_framed": 0}
+    want = {"mel_fused": n, "gru_fwd": n, "gru_bwd": n, "mel_framed": 0}
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
 

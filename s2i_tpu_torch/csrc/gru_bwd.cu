@@ -1,127 +1,118 @@
-// GRU backward recurrence for Hopper (sm_90a): the gradient of gru_fwd.cu.
+// GRU backward recurrence for Hopper (sm_90a): the gradient of gru_fwd.cu,
+// every direction of a layer in one call.
 //
 // Replaces: the Pallas TPU kernel `_bwd_kernel` in s2i_tpu/ops/gru_kernel.py
 // (reached through `_bwd_call` / `_fused_gru_bwd`, the custom VJP of
-// `fused_gru`). Same contract: from the forward's inputs and its output ys
-// (the only saved tensor), and the incoming dys, it gives dxw [T, B, 3H],
-// dW_h [H, 3H], db_h [3H] and dh0 [B, H]. The gates are recomputed from
-// (xw[t], h_{t-1}); a step whose mask is 0 passes dh straight through.
+// `fused_gru`). Same contract per direction: from the forward's inputs and
+// its output ys (the only saved tensor), and the incoming dys, it gives
+// dxw, dW_h, db_h and dh0. The gates are recomputed from (xw[t], h_{t-1});
+// a step whose mask is 0 passes dh straight through. The directions come
+// stacked as in gru_fwd.cu: xw [D, T, B, 3H], W_h [D, H, 3H], b_h [D, 3H],
+// h0 [D, B, H], mask [T, B], ys and dys [D, T, B, H]. Direction 1's forward
+// walked t from T-1 down, so its reverse scan walks t upwards, and its
+// h_{t-1} is ys[t+1] (h0 at t = T-1).
 //
 // What bounds it on this card: on paper, operations. Three products of
-// 2*T*B*H*3H each (the gate recompute h_{t-1} @ W_h, the carry dhg @ W_h^T
-// and dW_h = sum h_{t-1}^T dhg) are 38.7 GFLOP at T=128, B=64, H=512, or
-// 0.58 ms of the card's fp32 peak, against ~141 MB moved (0.04 ms). In
-// practice the carry's chain of T dependent steps sets the pace, as in K2:
-// each step needs the whole of dhg[t] of a row before any dh_{t-1} of it.
+// 2*T*B*H*3H each per direction (the gate recompute h_{t-1} @ W_h, the carry
+// dhg @ W_h^T and dW_h = sum h_{t-1}^T dhg) are 77 GFLOP at T=128, B=64,
+// H=512, D=2, or 1.16 ms of the card's fp32 peak, against ~280 MB moved
+// (0.08 ms). The carry's chain of T dependent steps is the part that cannot
+// use the whole card at once: each step needs the whole of dhg[t] of a row
+// before any dh_{t-1} of it. Measured on an H100 (700 W) at B=64, D=2
+// (chip_smoke.py's parts, gru_ab --profile): the chain is ~57% of the call,
+// and ~65% of a chain step is its product; the two SGEMMs are the rest.
 //
 // Design: only the carry is sequential, so only the carry runs step by step.
 //   1. gates: one tiled SGEMM (128x128 tiles, 8x8 per thread, two shared
-//      memory buffers) computes h_{t-1} @ W_h + b_h for all T*B rows at
-//      once, into dxw, which doubles as its scratch (h_{t-1} is ys shifted
-//      one step, h0 first).
-//   2. chain: a cooperative persistent kernel, at most one block per SM.
-//      Block (u, g) owns R batch rows and U hidden units (16 x 16 at B=64,
-//      H=512: 128 blocks), one (row, unit) pair per thread, and keeps the U
-//      rows of W_h it needs, transposed, in shared memory for all T steps.
-//      Each step (t = T-1 .. 0) it
-//        a. applies the gates to its pairs, from inputs fetched during the
-//           previous step, and writes dxw[t] (in place over the gate
-//           pre-activations) and dhg[t] = [dr, dz, dn*r] for its 3U columns;
-//        b. meets the other blocks of its row group (the row groups are
-//           independent scans) at a count-up barrier: one atomic per block;
-//        c. copies dhg[t] of its R rows into shared memory with 16-byte
-//           cp.async.cg (L2 only, so no stale L1 line; 512 contiguous bytes
-//           per warp);
+//      memory buffers, two blocks per SM) computes h_{t-1} @ W_h + b_h for
+//      all T*B rows of every direction, into dxw, which doubles as its
+//      scratch.
+//   2. chain: a cooperative persistent kernel of thread block clusters, the
+//      exchange of gru_common.cuh. A chain is a (direction, group of R rows)
+//      pair; its blocks own U hidden units each, and their threads keep the
+//      U rows of W_h they need in registers for all T steps (product_rows,
+//      W_h^T's columns). Each step a block
+//        a. applies the gates to its (row, unit) pairs, from inputs fetched
+//           during the previous step, and writes dxw[t] (in place over the
+//           gate pre-activations) and dhg[t] = [dr, dz, dn*r] for its 3U
+//           columns;
+//        b. meets the chain's other blocks;
+//        c. receives dhg[t] of its R rows, in one chunk of rows or, when
+//           R * 3H floats do not fit its shared memory, in chunks of RC rows
+//           two buffers deep (a cluster barrier frees a buffer for the chunk
+//           after next): its cluster copies each row from L2 once, into all
+//           of its blocks (multicast bulk copies);
 //        d. forms dh_{t-1} = dh_upd*z + dh_skip + dhg[t] @ W_h^T for its
-//           pairs: 4x4 register tiles over 4 j at a time, split over the
-//           3H sum, the splits added in a fixed order.
-//      The carry never leaves the block. Splitting rows as well as units
-//      keeps each block's share of dhg[t] at R*3H instead of B*3H: the copy
-//      in c. is what the L2 can serve to 128 blocks at once.
+//           pairs, the lane groups' sums added in a fixed order.
+//      The carry never leaves the block.
 //   3. dW_h = sum over T*B rows of h_{t-1}^T dhg: the same SGEMM, split
-//      over the T*B sum into fixed chunks whose partial sums are then added
-//      in order; db_h is a column sum of dhg. No atomics on data anywhere,
-//      so the result is the same every run.
-// Full fp32 FMA on the CUDA cores, no TF32.
+//      over the T*B sum into fixed chunks (as many as fill whole waves of
+//      the card) whose partial sums are then added in order; db_h is a
+//      column sum of dhg. No atomics on data anywhere, so the result is the
+//      same every run.
+// Full fp32 FMA on the CUDA cores, no TF32. W_h in registers bounds the
+// width as in gru_fwd.cu.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "gru_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // chain block size
-// ~8 s at 1.98 GHz: a barrier that waits longer traps instead of hanging.
-constexpr long long kSpinLimit = 1LL << 34;
+using namespace gru;
+
+constexpr int kMaxThreads = 512;  // chain block size at most
+constexpr int kPairs = 2;         // (row, unit) pairs a chain thread owns at most
 // SGEMM tile: BM x BN outputs per block, BK deep, TM x TN per thread.
 constexpr int BM = 128, BN = 128, BK = 8, TM = 8, TN = 8;
 constexpr int kGemmThreads = (BM / TM) * (BN / TN);
 
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// Wait until `target` arrivals have been counted on `count`, this block's
-// included: the k-th barrier of a group of n blocks waits for k*n. The
-// counter only grows, so no block has to reset it for the next step.
-__device__ void grid_sync(unsigned int* count, unsigned int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();  // this block's dhg writes are visible before arriving
-    atomicAdd(count, 1u);
-    volatile unsigned int* v = count;
-    const long long t0 = clock64();
-    while (*v < target) {
-      if (clock64() - t0 > kSpinLimit) __trap();
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// Row stride of the staged dhg rows: 16-byte aligned, and 4 banks apart, so
-// that a warp's reads of rows rt + a*R4/4 (rt = 0..3) at one j never collide.
-__host__ __device__ __forceinline__ int stage_stride(int H) {
-  return (3 * H + 31) / 32 * 32 + 4;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned int d = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
-}
-
-// Row i of h_{t-1} over all T*B rows: h0 for the first B rows, then ys.
+// Row i = t*B + b (over T*B rows) of h_{t-1} in direction d's forward order:
+// direction 0 reads h0 then ys[0..T-2], direction 1 ys[1..T-1] then h0.
 struct PrevRows {
-  const float* h0;
-  const float* ys;
-  int n_head;  // B
-  int ld;      // H
-  __device__ __forceinline__ const float* operator()(long i) const {
-    return i < n_head ? h0 + i * ld : ys + (i - n_head) * ld;
+  const float* h0;  // [D, B, H]
+  const float* ys;  // [D, T, B, H]
+  int B, T, H;
+  __device__ __forceinline__ const float* operator()(int d, long i) const {
+    const float* h0d = h0 + (long)d * B * H;
+    const float* ysd = ys + (long)d * T * B * H;
+    if (d == 0) return i < B ? h0d + i * H : ysd + (i - B) * H;
+    const long last = (long)(T - 1) * B;
+    return i >= last ? h0d + (i - last) * H : ysd + (i + B) * H;
   }
 };
 
-// c[z] [M, N] (row-major, ldc) = sum over k in chunk z of A(m, k) * b[k, n]
-// (+ bias[n]), with A(m, k) = a(m)[k], or a(k)[m] when a_trans. Every
-// thread loads one 16-byte piece of A and one of B per tile (so M or K, N
-// and the leading dimensions are multiples of 4), and owns the 8x8 outputs
-// at rows {4ty, 64+4ty} + 0..3 and columns {4tx, 64+4tx} + 0..3, so a
-// warp's shared memory reads are contiguous. Two shared memory buffers:
-// the next tile's loads are in flight while this one's products run.
-__global__ void __launch_bounds__(kGemmThreads) gemm_kernel(
-    PrevRows a, int a_trans, const float* __restrict__ b, int ldb,
-    const float* __restrict__ bias, float* __restrict__ c, int ldc,
-    long c_stride_z, int M, int N, int K, int k_chunk) {
+// Per blockIdx.z = d * z_per_d + zz: c[d][zz] [M, N] (row-major, ldc) = sum
+// over k in chunk zz of A(m, k) * b[d][k, n] (+ bias[d][n]), with A(m, k) =
+// a(d, m)[k], or a(d, k)[m] when a_trans. Every thread loads one 16-byte
+// piece of A and one of B per tile (so M or K, N and the leading dimensions
+// are multiples of 4), and owns the 8x8 outputs at rows {4ty, 64+4ty} +
+// 0..3 and columns {4tx, 64+4tx} + 0..3, so a warp's shared memory reads
+// are contiguous. Two shared memory buffers: the next tile's loads are in
+// flight while this one's products run.
+struct GemmArgs {
+  PrevRows a;
+  int a_trans;
+  const float* b;
+  int ldb;
+  long b_stride_d;
+  const float* bias;  // or null
+  int bias_stride_d;
+  float* c;
+  int ldc;
+  long c_stride_d, c_stride_z;
+  int z_per_d, M, N, K, k_chunk;
+};
+
+__global__ void __launch_bounds__(kGemmThreads, 2) gemm_kernel(const GemmArgs g) {
   __shared__ __align__(16) float as[2][BK][BM];
   __shared__ __align__(16) float bs[2][BK][BN];
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
+  const int d = blockIdx.z / g.z_per_d, zz = blockIdx.z - d * g.z_per_d;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int k_begin = blockIdx.z * k_chunk;
-  const int k_end = min(K, k_begin + k_chunk);
+  const int k_begin = zz * g.k_chunk;
+  const int k_end = min(g.K, k_begin + g.k_chunk);
+  const int M = g.M, N = g.N, a_trans = g.a_trans;
+  const float* b = g.b + d * g.b_stride_d;
   // this thread's pieces: A at (am, ak..ak+3) or (ak, am..am+3), B at (bk, bn..bn+3)
   const int am = a_trans ? (tid % 32) * 4 : tid / 2, ak = a_trans ? tid / 32 : (tid % 2) * 4;
   const int bk = tid / 32, bn = (tid % 32) * 4;
@@ -129,9 +120,9 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(
   float4 ra, rb;
   auto load = [&](int k0) {
     const int m = m0 + am, k = k0 + ak;
-    ra = m < M && k < k_end ? *reinterpret_cast<const float4*>(a_trans ? a(k) + m : a(m) + k) : zero;
+    ra = m < M && k < k_end ? *reinterpret_cast<const float4*>(a_trans ? g.a(d, k) + m : g.a(d, m) + k) : zero;
     const int kb = k0 + bk, n = n0 + bn;
-    rb = kb < k_end && n < N ? *reinterpret_cast<const float4*>(b + (long)kb * ldb + n) : zero;
+    rb = kb < k_end && n < N ? *reinterpret_cast<const float4*>(b + (long)kb * g.ldb + n) : zero;
   };
   auto store = [&](int buf) {
     if (a_trans) {
@@ -176,7 +167,8 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(
     __syncthreads();
   }
 
-  float* cz = c + blockIdx.z * c_stride_z;
+  float* cz = g.c + d * g.c_stride_d + zz * g.c_stride_z;
+  const float* bias = g.bias ? g.bias + d * g.bias_stride_d : nullptr;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
@@ -192,172 +184,209 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(
         v.z += bias[n + 2];
         v.w += bias[n + 3];
       }
-      *reinterpret_cast<float4*>(cz + (long)m * ldc + n) = v;
+      *reinterpret_cast<float4*>(cz + (long)m * g.ldc + n) = v;
     }
   }
 }
 
-// The reverse scan over T steps for batch rows [row0, row0 + n_rows).
-__global__ void __launch_bounds__(kThreads) gru_bwd_chain_kernel(
-    const float* __restrict__ xw,    // [T, B, 3H]
-    const float* __restrict__ wh,    // [H, 3H]
-    const float* __restrict__ mask,  // [T, B]
-    const float* __restrict__ h0,    // [B, H]
-    const float* __restrict__ ys,    // [T, B, H]
-    const float* __restrict__ dys,   // [T, B, H]
-    float* dxw,                      // [T, B, 3H]: in, h_{t-1} @ W_h + b_h; out, dxw
-    float* dhg,                      // [T, B, 3H]: out, [dr, dz, dn*r]
-    float* __restrict__ dh0,         // [B, H]
-    unsigned int* barrier,           // [gridDim.y], zeroed
-    int T, int B, int H, int row0, int n_rows, int R, int U) {
-  extern __shared__ __align__(16) float smem[];
-  const int R4 = (R + 3) & ~3, U4 = (U + 3) & ~3;
-  const int H3 = 3 * H;
-  const int RU = R4 * U4;
-  const int n_tiles = (R4 / 4) * (U4 / 4);
-  const int n_split = blockDim.x / n_tiles;  // the host makes this >= 1
-  const int S = stage_stride(H);
-  const int RS = (R4 / 4) * S;            // a thread's rows are rt + a * R4/4, a = 0..3
-  float* w_s = smem;                      // [H3][U4]: W_h[u0 + uu][j] at j*U4 + uu
-  float* g_s = w_s + (long)H3 * U4;      // [R4][S]: dhg[t][b0 + rr][j] at rr*S + j
-  float* red_s = g_s + (long)R4 * S;      // [n_split][R4*U4]: partial sums
-  float* dh_s = red_s + n_split * RU;     // [R4*U4]: the dh carry
-  float* base_s = dh_s + RU;              // [R4*U4]: dh_upd*z + dh_skip
-  const int tid = threadIdx.x;
-  const int b0 = row0 + blockIdx.y * R;
-  const int u0 = blockIdx.x * U;
-  const int rows = min(R, row0 + n_rows - b0);
-  const int units = min(U, H - u0);
+struct ChainArgs {
+  const float* xw;    // [D, T, B, 3H]
+  const float* wh;    // [D, H, 3H]
+  const float* mask;  // [T, B], 1 or 0
+  const float* h0;    // [D, B, H]
+  const float* ys;    // [D, T, B, H]
+  const float* dys;   // [D, T, B, H]
+  float* dxw;         // [D, T, B, 3H]: in, h_{t-1} @ W_h + b_h; out, dxw
+  float* dhg;         // [D, T, B, 3H]: out, [dr, dz, dn*r]
+  float* dh0;         // [D, B, H]
+  unsigned int* count;  // [D * groups], zeroed
+  int T, B, H;
+  int R;          // rows per group
+  int groups;     // row groups per direction
+  int U;          // hidden units per block, a multiple of 4
+  int per_chain;  // blocks per chain, a multiple of the cluster size
+  int ns;         // slices of the 3H sum (a multiple of 16)
+  int RC;         // rows of dhg[t] per staged chunk, a multiple of 4
+  int cluster;    // blocks per cluster
+};
 
-  // W_h rows u0 .. u0+U, read along the row (coalesced), stored transposed
-  for (int i = tid; i < U4 * H3; i += blockDim.x) {
-    const int uu = i / H3, j = i - uu * H3;
-    w_s[j * U4 + uu] = uu < units ? wh[(long)(u0 + uu) * H3 + j] : 0.0f;
-  }
+struct ChainLayout {
+  int R4, KS, NC, NB, M;
+  size_t g, red, dh, base, total;  // float offsets; total in bytes
+};
+
+__host__ __device__ inline ChainLayout chain_layout(int H, int R, int U, int RC) {
+  ChainLayout l;
+  l.R4 = (R + 3) & ~3;
+  const int ns = slices(3 * H);
+  l.KS = stage_stride(ns * kSlice);  // columns past 3H stay 0
+  l.NC = (l.R4 + RC - 1) / RC;
+  l.NB = l.NC > 1 ? 2 : 1;
+  l.M = ns / 16;
+  l.g = 4;  // after two mbarriers (16 bytes)
+  l.red = l.g + (size_t)l.NB * RC * l.KS;
+  l.dh = l.red + (size_t)l.M * l.R4 * U;
+  l.base = l.dh + (size_t)l.R4 * U;
+  l.total = sizeof(float) * (l.base + (size_t)l.R4 * U);
+  return l;
+}
+
+__global__ void __launch_bounds__(kMaxThreads, 1) gru_bwd_chain_kernel(const ChainArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int H = a.H, H3 = 3 * H, T = a.T, B = a.B, U = a.U, ns = a.ns, RC = a.RC;
+  const ChainLayout l = chain_layout(H, a.R, U, RC);
+  const int R4 = l.R4, KS = l.KS, NC = l.NC, RU = l.R4 * U;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // one per staging buffer
+  float* g_s = smem + l.g;        // [NB][RC][KS]: a chunk of rows of dhg[t]
+  float* red_s = smem + l.red;    // [M][R4][U]: partial sums of dhg[t] @ W_h^T
+  float* dh_s = smem + l.dh;      // [R4][U]: the dh carry
+  float* base_s = smem + l.base;  // [R4][U]: dh_upd*z + dh_skip
+  const int tid = threadIdx.x;
+  const int chain = blockIdx.x / a.per_chain;
+  const int d = chain / a.groups;
+  const int b0 = (chain - d * a.groups) * a.R;
+  const int rows = max(0, min(a.R, B - b0));
+  const int u0 = (blockIdx.x - chain * a.per_chain) * U;
+  const int units = max(0, min(U, H - u0));
+  const long dTB = (long)d * T * B;
+  const float* ys = a.ys + dTB * H;
+  const float* h0 = a.h0 + (long)d * B * H;
+  float* dhg = a.dhg + dTB * H3;
+  auto time_of = [&](int s) { return d ? s : T - 1 - s; };  // the forward's order, reversed
+
+  if (tid < l.NB) mbar_init(bars + tid);
+  // this thread's slice of W_h^T (column c is W_h row u0 + c), for dhg @ W_h^T
+  const ProductLane lane(U, ns);
+  float w[kSlice][4];
+  const float* wh = a.wh + ((long)d * H + u0) * H3;
+  load_slice(w, lane, ns, [&](int j, int c) { return c < units && j < H3 ? wh[(long)c * H3 + j] : 0.0f; });
   for (int i = tid; i < RU; i += blockDim.x) {
     dh_s[i] = 0.0f;
     base_s[i] = 0.0f;
   }
-  for (int i = tid; i < R4 * S; i += blockDim.x) g_s[i] = 0.0f;  // padding rows and columns stay 0
-  __syncthreads();
+  for (size_t i = tid; i < l.red - l.g; i += blockDim.x) g_s[i] = 0.0f;  // padding columns stay 0
 
-  const int tile = tid % n_tiles, split = tid / n_tiles;
-  const int rt = tile / (U4 / 4), ut = tile - rt * (U4 / 4);
-  // one (row, unit) pair per thread (the host makes rows * units <= kThreads)
-  const bool owner = tid < rows * units;
-  const int rr = owner ? tid / units : 0, uu = owner ? tid - rr * units : 0;
-  const int b = b0 + rr, u = u0 + uu;
-  // a step's inputs for the pair; none of them is written by another block
-  // during the scan, so step t-1's are fetched before step t's barrier
-  float xr, xz, xn, hr, hz, hn, h_prev, dy, m;
-  auto fetch = [&](int t) {
-    const long tb = (long)t * B + b;
-    const float* x = xw + tb * H3;
-    const float* d = dxw + tb * H3;
-    xr = x[u], xz = x[H + u], xn = x[2 * H + u];
-    hr = d[u], hz = d[H + u], hn = d[2 * H + u];
-    h_prev = t > 0 ? ys[(tb - B) * H + u] : h0[(long)b * H + u];
-    dy = dys[tb * H + u];
-    m = mask[tb];
+  // the thread's (row, unit) pairs, tid + p * blockDim.x, and their inputs
+  // for a step; none of the inputs is written by another block during the
+  // scan, so step s+1's are fetched during step s
+  const int n_pairs = rows * units;
+  float xr[kPairs], xz[kPairs], xn[kPairs], hr[kPairs], hz[kPairs], hn[kPairs], hp[kPairs], dy[kPairs], m[kPairs];
+  auto fetch = [&](int s) {
+    const int t = time_of(s);
+#pragma unroll
+    for (int p = 0; p < kPairs; ++p) {
+      const int i = tid + p * blockDim.x;
+      if (i >= n_pairs) break;
+      const int rr = i / units, uu = i - rr * units, b = b0 + rr, u = u0 + uu;
+      const long tb = dTB + (long)t * B + b;
+      const float* x = a.xw + tb * H3;
+      const float* hw = a.dxw + tb * H3;
+      xr[p] = x[u], xz[p] = x[H + u], xn[p] = x[2 * H + u];
+      hr[p] = hw[u], hz[p] = hw[H + u], hn[p] = hw[2 * H + u];
+      const int tp = d ? t + 1 : t - 1;  // h_{t-1} in the forward's order
+      hp[p] = tp >= 0 && tp < T ? ys[((long)tp * B + b) * H + u] : h0[(long)b * H + u];
+      dy[p] = a.dys[tb * H + u];
+      m[p] = a.mask[(long)t * B + b];
+    }
   };
-  if (owner) fetch(T - 1);
-  unsigned int* bar = barrier + blockIdx.y;  // row groups are independent scans
-  for (int t = T - 1; t >= 0; --t) {
-    // 1. gates of the block's (row, unit) pairs; dxw[t] and dhg[t] for them
-    if (owner) {
-      const long tb = (long)t * B + b;
-      const float r = sigmoid(xr + hr);
-      const float z = sigmoid(xz + hz);
-      const float n = tanhf(xn + r * hn);
-      const float dh_tot = dy + dh_s[rr * U4 + uu];
-      const bool valid = m > 0.0f;
+  fetch(0);
+  // every block's mbarriers are initialized, and its shared memory zeroed,
+  // before any copy into them
+  cluster_sync_for_copies();
+
+  unsigned int* count = a.count + chain;
+  uint32_t phase = 0;  // bit i: parity of buffer i's next completion
+
+  for (int s = 0; s < T; ++s) {
+    const int t = time_of(s);
+    const float* dhg_t = dhg + ((long)t * B + b0) * H3;
+    GRU_MARK(s, 0);
+    // a. gates of the block's pairs; dxw[t] and dhg[t] for them
+#pragma unroll
+    for (int p = 0; p < kPairs; ++p) {
+      const int i = tid + p * blockDim.x;
+      if (i >= n_pairs) break;
+      const int rr = i / units, uu = i - rr * units, u = u0 + uu;
+      const long tb = dTB + (long)t * B + b0 + rr;
+      const float r = sigmoid(xr[p] + hr[p]);
+      const float z = sigmoid(xz[p] + hz[p]);
+      const float n = tanhf(xn[p] + r * hn[p]);
+      const float dh_tot = dy[p] + dh_s[rr * U + uu];
+      const bool valid = m[p] > 0.0f;
       const float dh_upd = valid ? dh_tot : 0.0f;
       const float dn_pre = dh_upd * (1.0f - z) * (1.0f - n * n);
-      const float dz_pre = dh_upd * (h_prev - n) * z * (1.0f - z);
-      const float dr_pre = dn_pre * hn * r * (1.0f - r);
-      float* d = dxw + tb * H3;
-      d[u] = dr_pre;
-      d[H + u] = dz_pre;
-      d[2 * H + u] = dn_pre;
-      float* g = dhg + tb * H3;
+      const float dz_pre = dh_upd * (hp[p] - n) * z * (1.0f - z);
+      const float dr_pre = dn_pre * hn[p] * r * (1.0f - r);
+      float* dx = a.dxw + tb * H3;
+      dx[u] = dr_pre;
+      dx[H + u] = dz_pre;
+      dx[2 * H + u] = dn_pre;
+      float* g = a.dhg + tb * H3;
       g[u] = dr_pre;
       g[H + u] = dz_pre;
       g[2 * H + u] = dn_pre * r;
-      base_s[rr * U4 + uu] = valid ? dh_upd * z : dh_tot;
-      if (t > 0) fetch(t - 1);
+      base_s[rr * U + uu] = valid ? dh_upd * z : dh_tot;
     }
-    grid_sync(bar, (T - t) * gridDim.x);
+    GRU_MARK(s, 1);
 
-    // 2. stage dhg[t] of the block's rows, every block's columns, row-major:
-    //    16-byte asynchronous copies straight into shared memory, each warp
-    //    reading 512 contiguous bytes
-    const float* src = dhg + ((long)t * B + b0) * H3;
-    const int q4 = H3 / 4;
-    for (int i = tid; i < rows * q4; i += blockDim.x) {
-      const int rr = i / q4, q = i - rr * q4;
-      cp_async16(g_s + rr * S + 4 * q, src + (long)rr * H3 + 4 * q);
-    }
-    cp_async_wait_all();
-    __syncthreads();
+    // b. the chain's step barrier; c. the first two chunks of dhg[t]'s rows
+    chain_barrier(count, (s + 1) * a.per_chain, s);
+    auto stage = [&](int c) {
+      const int n = max(0, min(RC, rows - c * RC));
+      stage_rows(g_s + (size_t)(c & 1) * RC * KS, KS, dhg_t + (long)c * RC * H3, H3, n, H3, bars + (c & 1), a.cluster);
+    };
+    if (tid == 0)
+      for (int c = 0; c < l.NB; ++c) stage(c);
+    if (s + 1 < T) fetch(s + 1);  // in flight while the chunks land
+    GRU_MARK(s, 7);
 
-    // 3. dh_{t-1} = base + dhg[t] @ W_h^T: a 4x4 tile per thread, split over j
-    if (split < n_split) {
-      float acc[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = 0.0f;
-      for (int q = split; q < H3 / 4; q += n_split) {  // j = 4q .. 4q+3
-        float4 gv[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) gv[a] = *reinterpret_cast<const float4*>(g_s + rt * S + a * RS + 4 * q);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float4 wv = *reinterpret_cast<const float4*>(w_s + (4 * q + k) * U4 + 4 * ut);
-          const float wa[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            const float ga = k == 0 ? gv[a].x : k == 1 ? gv[a].y : k == 2 ? gv[a].z : gv[a].w;
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(ga, wa[c], acc[a][c]);
-          }
-        }
+    // d. dhg[t] @ W_h^T, chunk by chunk of rows, W from registers
+    for (int c = 0; c < NC; ++c) {
+      const int buf = c & 1;
+      mbar_wait(bars + buf, (phase >> buf) & 1);
+      if (c == 0) GRU_MARK(s, 8);
+      phase ^= 1u << buf;
+      product_rows(g_s + (size_t)buf * RC * KS, KS, min(RC, rows - c * RC), w, lane, ns, U / 4 * ns, red_s, R4, U,
+                   c * RC);
+      if (c + 2 < NC) {
+        cluster_sync_for_copies();  // every block of the cluster is done with this buffer
+        if (tid == 0) stage(c + 2);
       }
-      float* red = red_s + split * RU;
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) red[(rt + a * (R4 / 4)) * U4 + 4 * ut + c] = acc[a][c];
     }
     __syncthreads();
+    GRU_MARK(s, 2);
     for (int i = tid; i < RU; i += blockDim.x) {
-      float s = 0.0f;
-      for (int k = 0; k < n_split; ++k) s += red_s[k * RU + i];
-      dh_s[i] = base_s[i] + s;
+      float sum = 0.0f;
+      for (int k = 0; k < l.M; ++k) sum += red_s[(size_t)k * RU + i];
+      dh_s[i] = base_s[i] + sum;
     }
     __syncthreads();
+    GRU_MARK(s, 3);
   }
 
-  if (owner) dh0[(long)b * H + u] = dh_s[rr * U4 + uu];
+  for (int i = tid; i < n_pairs; i += blockDim.x) {
+    const int rr = i / units, uu = i - rr * units;
+    a.dh0[((long)d * B + b0 + rr) * H + u0 + uu] = dh_s[rr * U + uu];
+  }
 }
 
-// out[i] = sum over z of part[z * n + i], z in order.
-__global__ void sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                  long n, int splits) {
-  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n;
-       i += (long)gridDim.x * blockDim.x) {
+// out[d][i] = sum over z of part[d][z][i], z in order.
+__global__ void sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out, long n,
+                                  int splits, int D) {
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < D * n; i += (long)gridDim.x * blockDim.x) {
+    const long d = i / n, j = i - d * n;
     float s = 0.0f;
-    for (int z = 0; z < splits; ++z) s += part[z * n + i];
+    for (int z = 0; z < splits; ++z) s += part[(d * splits + z) * n + j];
     out[i] = s;
   }
 }
 
-// out[n] = sum over rows of x[row, n]; block (32, 8): 8 strided partial sums
-// per column, added in a fixed order.
-__global__ void colsum_kernel(const float* __restrict__ x, float* __restrict__ out,
-                              long rows, int N) {
+// out[d][n] = sum over rows of x[d][row, n]; block (32, 8): 8 strided
+// partial sums per column, added in a fixed order; blockIdx.y = d.
+__global__ void colsum_kernel(const float* __restrict__ x, float* __restrict__ out, long rows, int N) {
   __shared__ float part[8][33];
   const int n = blockIdx.x * 32 + threadIdx.x;
+  x += blockIdx.y * rows * N;
   float s = 0.0f;
   if (n < N)
     for (long i = threadIdx.y; i < rows; i += 8) s += x[i * N + n];
@@ -366,55 +395,27 @@ __global__ void colsum_kernel(const float* __restrict__ x, float* __restrict__ o
   if (threadIdx.y == 0 && n < N) {
     float tot = 0.0f;
     for (int y = 0; y < 8; ++y) tot += part[y][threadIdx.x];
-    out[n] = tot;
+    out[blockIdx.y * N + n] = tot;
   }
 }
 
-int device_attr(cudaDeviceAttr attr) {
-  int device = 0, v = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&v, attr, device);
-  return v;
-}
-
-size_t chain_smem(int H, int R, int U) {
-  const long R4 = (R + 3) & ~3, U4 = (U + 3) & ~3;
-  const long n_split = kThreads / ((R4 / 4) * (U4 / 4));
-  return sizeof(float) * (3L * H * U4 + R4 * (long)stage_stride(H) + (n_split + 2) * R4 * U4);
-}
-
-// The chain's partition of `rows` batch rows over at most n_sm blocks: R rows
-// and U units per block, least work per block (R4*U4) first, then fewest
-// unit groups (each reads all of its rows' dhg[t]). False if nothing fits.
-bool chain_plan(int rows, int H, int n_sm, size_t smem_max, int* R_out, int* U_out) {
-  long best = -1;
-  for (int R = 1; R <= rows && R <= 64; ++R) {
-    const int g_r = (rows + R - 1) / R;
-    if (g_r > n_sm) continue;
-    const int g_u_max = n_sm / g_r;
-    const int U = (H + g_u_max - 1) / g_u_max;
-    const int g_u = (H + U - 1) / U;
-    const long R4 = (R + 3) & ~3, U4 = (U + 3) & ~3;
-    if (R * U > kThreads || chain_smem(H, R, U) > smem_max) continue;
-    const long cost = R4 * U4 * 4096 + g_u;
-    if (best < 0 || cost < best) {
-      best = cost;
-      *R_out = R;
-      *U_out = U;
+// Split of the dW_h sum over T*B rows: the split count up to 16 whose
+// blocks fill whole waves of the card (two blocks per SM) best, fewest
+// splits on a tie, and no chunk shorter than 256 rows.
+int dw_splits(long K, int H, int D, int n_sm) {
+  const long tiles = (long)D * ((H + BM - 1) / BM) * ((3 * H + BN - 1) / BN);
+  const long wave = 2L * n_sm;
+  int best = 1;
+  double best_fill = 0.0;
+  for (int s = 1; s <= 16 && (s == 1 || K / s >= 256); ++s) {
+    const long blocks = tiles * s, waves = (blocks + wave - 1) / wave;
+    const double fill = (double)blocks / (waves * wave);
+    if (fill > best_fill + 1e-9) {
+      best = s;
+      best_fill = fill;
     }
   }
-  return best >= 0;
-}
-
-// Split of the dW_h sum over T*B rows: as many blocks as fit the card at
-// once (two per SM), so there is no ragged second wave.
-int dw_splits(long K, int H, int n_sm) {
-  const long tiles = (long)((H + BM - 1) / BM) * ((3 * H + BN - 1) / BN);
-  long s = 2L * n_sm / tiles;
-  const long s_max = K / 256 > 1 ? K / 256 : 1;
-  if (s > s_max) s = s_max;
-  if (s < 1) s = 1;
-  return (int)s;
+  return best;
 }
 
 long k_chunk_of(long K, int splits) {
@@ -424,78 +425,119 @@ long k_chunk_of(long K, int splits) {
 
 }  // namespace
 
-// Floats of scratch s2i_gru_bwd needs: dhg [T, B, 3H] and the dW_h partial sums.
-extern "C" long s2i_gru_bwd_workspace(int T, int B, int H) {
-  const long K = (long)T * B;
+// The chain's launch plan for D directions of B rows and H units, in
+// clusters of `cluster` blocks (8 or 4; 0: whichever plan costs less, 8 on
+// a tie): fills plan with {groups, U, per_chain, ns, threads, smem bytes,
+// blocks, RC, cluster}. Least work per block first, then fewest chunks per
+// step, then fewest rows to stage. Returns 0, or an
+// error if no plan fits the card.
+extern "C" int s2i_gru_bwd_plan(int D, int B, int H, int cluster, int* plan) {
+  if (D <= 0 || B <= 0 || H <= 0 || H % 4 || (cluster && cluster != 4 && cluster != 8)) return cudaErrorInvalidValue;
   const int n_sm = device_attr(cudaDevAttrMultiProcessorCount);
-  const long chunk = k_chunk_of(K, dw_splits(K, H, n_sm));
-  const long splits = (K + chunk - 1) / chunk;
-  return K * 3 * H + splits * H * 3L * H;
+  const size_t smem_max = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
+  const int H3 = 3 * H;
+  long best = -1;
+  for (const int C : {8, 4}) {
+    if (cluster && cluster != C) continue;
+    for (int groups = 1; groups <= B; ++groups) {
+      const int R = (B + groups - 1) / groups;
+      if (groups > 1 && (B + R - 1) / R < groups) continue;  // same R as fewer groups
+      for (int U = 4; U <= (H + 3) / 4 * 4; U += 4) {
+        const int per_chain = ((H + U - 1) / U + C - 1) / C * C;
+        const int blocks = D * groups * per_chain;
+        if (blocks > n_sm) continue;
+        const int R4 = (R + 3) & ~3;
+        const int ns = slices(H3), threads = (U / 4 * ns + 31) / 32 * 32;
+        if (threads > kMaxThreads) break;  // larger U only needs more threads
+        if (R * U > kPairs * threads) continue;
+        int RC = 0;
+        for (int rc = R4; rc >= 4 && !RC; rc -= 4)
+          if (chain_layout(H, R, U, rc).total <= smem_max) RC = rc;
+        if (!RC) continue;
+        const long cost = ((((long)R4 * U * 256 + (R4 + RC - 1) / RC) * 4096 + R)) * 2 + (C == 4);
+        if (best >= 0 && cost >= best) break;
+        const size_t smem = one_block_per_sm(chain_layout(H, R, U, RC).total);
+        if ((long)max_clusters(gru_bwd_chain_kernel, C, threads, smem) * C < blocks) continue;
+        best = cost;
+        const int p[9] = {groups, U, per_chain, ns, threads, (int)smem, blocks, RC, C};
+        for (int i = 0; i < 9; ++i) plan[i] = p[i];
+        break;
+      }
+    }
+  }
+  return best >= 0 ? 0 : cudaErrorInvalidValue;
 }
 
-extern "C" int s2i_gru_bwd(const float* xw, const float* wh, const float* bh,
-                           const float* mask, const float* h0, const float* ys,
-                           const float* dys, float* dxw, float* dwh, float* dbh,
-                           float* dh0, float* workspace, unsigned int* barrier,
-                           int T, int B, int H, void* stream_ptr) {
-  if (T <= 0 || B <= 0 || H <= 0 || H % 4) return cudaErrorInvalidValue;  // 16-byte rows
+// Floats of scratch s2i_gru_bwd needs: dhg [D, T, B, 3H] and the dW_h partial sums.
+extern "C" long s2i_gru_bwd_workspace(int D, int T, int B, int H) {
+  const long K = (long)T * B;
+  const int n_sm = device_attr(cudaDevAttrMultiProcessorCount);
+  const long chunk = k_chunk_of(K, dw_splits(K, H, D, n_sm));
+  const long splits = (K + chunk - 1) / chunk;
+  return D * (K * 3 * H + splits * H * 3L * H);
+}
+
+// count: D * groups zeroed words; plan: as s2i_gru_bwd_plan gave it; events:
+// null, or 4 cudaEvent_t recorded before the gate SGEMM, after it, after the
+// chain, and after dW_h and db_h.
+extern "C" int s2i_gru_bwd(const float* xw, const float* wh, const float* bh, const float* mask,
+                           const float* h0, const float* ys, const float* dys, float* dxw, float* dwh,
+                           float* dbh, float* dh0, float* workspace, unsigned int* count, int D, int T,
+                           int B, int H, const int* plan, void** events, void* stream_ptr) {
+  if (D <= 0 || T <= 0 || B <= 0 || H <= 0 || H % 4) return cudaErrorInvalidValue;  // 16-byte rows
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  auto mark = [&](int i) {
+    if (events) cudaEventRecord(static_cast<cudaEvent_t>(events[i]), stream);
+  };
   const int H3 = 3 * H;
   const long K = (long)T * B;
   const int n_sm = device_attr(cudaDevAttrMultiProcessorCount);
-  const size_t smem_max = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
   float* dhg = workspace;
-  float* part = workspace + K * H3;
-  const PrevRows prev{h0, ys, B, H};
+  float* part = workspace + D * K * H3;
+  const PrevRows prev{h0, ys, B, T, H};
   cudaError_t err;
 
   // 1. gate pre-activations h_{t-1} @ W_h + b_h for all T*B rows, into dxw
-  gemm_kernel<<<dim3((H3 + BN - 1) / BN, (unsigned)((K + BM - 1) / BM), 1), kGemmThreads, 0, stream>>>(
-      prev, 0, wh, H3, bh, dxw, H3, 0, (int)K, H3, H, (H + BK - 1) / BK * BK);
+  mark(0);
+  const GemmArgs gates{prev, 0, wh, H3, (long)H * H3, bh, H3, dxw, H3, K * H3, 0, 1, (int)K, H3, H,
+                       (H + BK - 1) / BK * BK};
+  gemm_kernel<<<dim3((H3 + BN - 1) / BN, (unsigned)((K + BM - 1) / BM), D), kGemmThreads, 0, stream>>>(gates);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mark(1);
 
-  // 2. the reverse chain, over as many row chunks as shared memory needs
-  int rows = B, R = 0, U = 0;
-  while (!chain_plan(rows, H, n_sm, smem_max, &R, &U)) {
-    if (rows == 1) return cudaErrorInvalidValue;  // H too large for one block's shared memory
-    rows = (rows + 1) / 2;
-  }
-  const size_t smem = chain_smem(H, R, U);
-  err = cudaFuncSetAttribute(gru_bwd_chain_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // 2. the reverse chains of every direction and row group
+  const int groups = plan[0];
+  const ChainArgs chain{xw, wh, mask, h0, ys, dys, dxw, dhg, dh0, count, T, B, H, (B + groups - 1) / groups,
+                        groups, plan[1], plan[2], plan[3], plan[7], plan[8]};
+  err = launch_chains(gru_bwd_chain_kernel, plan[6], plan[8], plan[4], (size_t)plan[5], stream, chain);
   if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gru_bwd_chain_kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return err;
-  for (int row0 = 0; row0 < B; row0 += rows) {
-    int n_rows = B - row0 < rows ? B - row0 : rows;
-    const dim3 grid((H + U - 1) / U, (n_rows + R - 1) / R);
-    if ((long)per_sm * n_sm < (long)grid.x * grid.y) return cudaErrorCooperativeLaunchTooLarge;
-    if ((err = cudaMemsetAsync(barrier, 0, grid.y * sizeof(unsigned int), stream)) != cudaSuccess)
-      return err;
-    void* args[] = {(void*)&xw, (void*)&wh, (void*)&mask, (void*)&h0, (void*)&ys,
-                    (void*)&dys, (void*)&dxw, (void*)&dhg, (void*)&dh0, (void*)&barrier,
-                    (void*)&T, (void*)&B, (void*)&H, (void*)&row0, (void*)&n_rows,
-                    (void*)&R, (void*)&U};
-    err = cudaLaunchCooperativeKernel((const void*)gru_bwd_chain_kernel, grid,
-                                      dim3(kThreads), args, smem, stream);
-    if (err != cudaSuccess) return err;
-  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mark(2);
 
   // 3. dW_h = sum h_{t-1}^T dhg in fixed chunks of rows, then the chunks in order
-  const int chunk = (int)k_chunk_of(K, dw_splits(K, H, n_sm));
+  const int splits_ = dw_splits(K, H, D, n_sm);
+  const int chunk = (int)k_chunk_of(K, splits_);
   const int splits = (int)((K + chunk - 1) / chunk);
-  gemm_kernel<<<dim3((H3 + BN - 1) / BN, (H + BM - 1) / BM, splits), kGemmThreads, 0, stream>>>(
-      prev, 1, dhg, H3, nullptr, part, H3, (long)H * H3, H, H3, (int)K, chunk);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long n_w = (long)H * H3;
-  sum_splits_kernel<<<(unsigned)((n_w + 255) / 256 < 4096 ? (n_w + 255) / 256 : 4096), 256, 0,
-                      stream>>>(part, dwh, n_w, splits);
+  const GemmArgs dw{prev, 1, dhg, H3, K * H3, nullptr, 0, part, H3, splits * n_w, n_w, splits, H, H3, (int)K,
+                    chunk};
+  gemm_kernel<<<dim3((H3 + BN - 1) / BN, (H + BM - 1) / BM, D * splits), kGemmThreads, 0, stream>>>(dw);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  colsum_kernel<<<(H3 + 31) / 32, dim3(32, 8), 0, stream>>>(dhg, dbh, K, H3);
-  return cudaGetLastError();
+  const long n_out = D * n_w;
+  sum_splits_kernel<<<(unsigned)((n_out + 255) / 256 < 4096 ? (n_out + 255) / 256 : 4096), 256, 0, stream>>>(
+      part, dwh, n_w, splits, D);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  colsum_kernel<<<dim3((H3 + 31) / 32, D), dim3(32, 8), 0, stream>>>(dhg, dbh, K, H3);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mark(3);
+  return cudaSuccess;
 }
+
+#ifdef GRU_PROFILE
+extern "C" int s2i_gru_prof(long long* out) {
+  return cudaMemcpyFromSymbol(out, gru_prof, sizeof(gru_prof));
+}
+#endif
 
 extern "C" const char* s2i_gru_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

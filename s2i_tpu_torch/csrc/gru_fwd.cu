@@ -1,204 +1,260 @@
-// GRU forward recurrence for Hopper (sm_90a): all T steps in one launch.
+// GRU forward recurrence for Hopper (sm_90a): every direction of a layer,
+// all T steps, in one launch.
 //
 // Replaces: the Pallas TPU kernel `_fwd_kernel` in s2i_tpu/ops/gru_kernel.py
-// (reached through `_fwd_call` / `fused_gru`). Same contract: the input
-// projections xw [T, B, 3H] are precomputed outside, W_h [H, 3H] and b_h
-// [3H] stay resident, gates are r|z|n with b_hn inside r*(...), and a step
-// whose mask is 0 carries h through unchanged.
+// (reached through `_fwd_call` / `fused_gru`). Same contract per direction:
+// the input projections xw are precomputed outside, W_h and b_h stay
+// resident, gates are r|z|n with b_hn inside r*(...), and a step whose mask
+// is 0 carries h through unchanged. The directions of a layer come stacked:
+// xw [D, T, B, 3H], W_h [D, H, 3H], b_h [D, 3H], h0 [D, B, H], one mask
+// [T, B], ys [D, T, B, H]. Direction 1 walks t from T-1 down to 0 over the
+// unflipped arrays, which is what running direction 0's scan on the flipped
+// sequence and mask, then flipping ys back, gives.
 //
 // What bounds it on this card: neither bytes nor operations but the chain
-// of T dependent steps. One step at H=512, B=8 is 2*8*512*1536 = 12.6 MFLOP
-// (0.2 us of the card's fp32 peak) and reads 3 MB of W_h; the step cannot
-// start before every hidden unit of the previous one is known.
+// of T dependent steps. A step at H=512, B=64, D=2 is 2*2*64*512*1536 =
+// 201 MFLOP, 3 us of the card's fp32 peak; at B=8 it is 0.4 us. Measured
+// on an H100 (700 W) with `python -m s2i_tpu_torch.gru_ab --profile`, a
+// step at B=64 takes ~24,000 SM clocks, ~62% of them in the product; at
+// B=8 it takes ~9,400, ~45% of them in the step barrier (release, spin on
+// the other blocks, and the fence before it) and ~26% in the product.
 //
-// Design: a cooperative persistent kernel. The launch holds at most one
-// block per SM (cudaLaunchCooperativeKernel guarantees they are all
-// resident). Block i owns U hidden units and keeps the 3U columns of W_h
-// that feed them in shared memory for the whole sequence (3*4*512*4 B =
-// 24 KB at H=512, U=4), so W_h is read from device memory once per launch,
-// not once per step. Every step the block
-//   1. stages h_{t-1} [B, H] in shared memory (read with ld.global.cg from
-//      ys[t-1], or h0, so L1 never serves another block's stale line),
-//      together with its own columns of xw[t] and the mask of step t,
-//   2. computes its 3U columns of h_{t-1} @ W_h + b_h (one warp per column,
-//      lanes split H, a shuffle reduction per batch row),
-//   3. applies the gates and the mask freeze to its U units and writes
-//      ys[t] for them,
-// and a grid-wide barrier (one atomic counter and a generation word) ends
-// the step. h_t is never kept anywhere but ys[t], which doubles as the
-// carry: no second buffer is needed.
+// Design: a cooperative persistent kernel of thread block clusters (see
+// gru_common.cuh for the exchange). Chains (direction, group of R rows)
+// run side by side on disjoint blocks and meet only their own blocks at
+// each step. Block (chain, i) owns U hidden units of its direction, and its
+// threads keep the 3U columns of W_h that feed them in registers for all T
+// steps (product_rows: 16 k by 4 columns per thread), so shared memory
+// holds only the step's rows of h and W_h is read from device memory once
+// per launch. Each step the block
+//   1. waits on its mbarrier for h_{t-1} of its R rows, which its cluster
+//      copied from ys[t-1] (or h0) into the shared memory of all of its
+//      blocks with one multicast bulk copy per row;
+//   2. computes h_{t-1} @ W_slice: each value of h read from shared memory
+//      feeds four FMAs, and the 16 lanes that share four columns add their
+//      slices by shuffles; the lane groups' sums go to shared memory;
+//   3. applies the gates and the mask to its (row, unit) pairs, adding the
+//      sums in a fixed order, from xw[t] and mask[t] that cp.async fetched
+//      into shared memory during the previous step, and writes ys[t];
+//   4. meets the chain's other blocks and issues its share of the cluster's
+//      copy of ys[t].
+// h_t is never kept anywhere but ys[t], which doubles as the carry. W_h in
+// registers bounds the width: 512 threads hold 32K floats, so a chain needs
+// at least 3H^2 / 32K blocks, which for both directions at once fits the
+// card up to H of about 780 (no launch plan beyond: the wrapper raises).
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "gru_common.cuh"
 
 namespace {
 
-constexpr int kRows = 8;  // batch rows a warp accumulates per pass
-// ~8 s at 1.98 GHz: a barrier that waits longer traps instead of hanging.
-constexpr long long kSpinLimit = 1LL << 34;
+using namespace gru;
 
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
+constexpr int kMaxThreads = 512;
+
+struct FwdArgs {
+  const float* xw;    // [D, T, B, 3H]
+  const float* wh;    // [D, H, 3H]
+  const float* bh;    // [D, 3H]
+  const float* mask;  // [T, B], 1 or 0
+  const float* h0;    // [D, B, H]
+  float* ys;          // [D, T, B, H]
+  unsigned int* count;  // [D * groups], zeroed
+  int T, B, H;
+  int R;          // rows per group
+  int groups;     // row groups per direction
+  int U;          // hidden units per block, a multiple of 4
+  int per_chain;  // blocks per chain, a multiple of the cluster size
+  int ns;         // slices of the H sum (a multiple of 16)
+  int cluster;    // blocks per cluster
+};
+
+struct FwdLayout {
+  int R4, J, S, M;
+  size_t h, red, x, m, b, total;  // float offsets; total in bytes
+};
+
+__host__ __device__ inline FwdLayout fwd_layout(int H, int R, int U) {
+  FwdLayout l;
+  l.R4 = (R + 3) & ~3;
+  l.J = 3 * U;
+  const int ns = slices(H);
+  l.S = stage_stride(ns * kSlice);  // columns past H stay 0
+  l.M = ns / 16;                    // partial sums per output
+  l.h = 4;                      // after the mbarrier (16 bytes)
+  l.red = l.h + (size_t)l.R4 * l.S;
+  l.x = l.red + (size_t)l.M * l.R4 * l.J;
+  l.m = l.x + 2 * (size_t)R * l.J;
+  l.b = l.m + 2 * (size_t)l.R4;
+  l.total = sizeof(float) * (l.b + l.J);
+  return l;
 }
 
-__device__ void grid_barrier(unsigned int* count, unsigned int* gen,
-                             unsigned int n_blocks) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned int* vgen = gen;
-    const unsigned int my_gen = *vgen;
-    __threadfence();  // this block's ys writes are visible before arriving
-    if (atomicAdd(count, 1u) == n_blocks - 1) {
-      atomicExch(count, 0u);  // reset before the release below
-      __threadfence();
-      atomicAdd(gen, 1u);
-    } else {
-      const long long t0 = clock64();
-      while (*vgen == my_gen) {
-        if (clock64() - t0 > kSpinLimit) __trap();
-      }
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-__global__ void gru_fwd_kernel(const float* __restrict__ xw,    // [T, B, 3H]
-                               const float* __restrict__ wh,    // [H, 3H]
-                               const float* __restrict__ bh,    // [3H]
-                               const float* __restrict__ mask,  // [T, B]
-                               const float* __restrict__ h0,    // [B, H]
-                               float* ys,                       // [T, B, H]
-                               unsigned int* barrier,           // [2], zeroed
-                               int T, int B, int H, int U) {
+__global__ void __launch_bounds__(kMaxThreads, 1) gru_fwd_kernel(const FwdArgs a) {
   extern __shared__ __align__(16) float smem[];
-  const int J = 3 * U;        // gate columns this block owns
-  float* w_s = smem;          // [J, H]: column j of the slice, stored as a row
-  float* h_s = w_s + J * H;   // [B, H]: h_{t-1}
-  float* hw_s = h_s + B * H;  // [B, J]: h_{t-1} @ W_slice + b_slice
-  float* x_s = hw_s + B * J;  // [B, J]: this step's xw for the block's columns
-  float* m_s = x_s + B * J;   // [B]: this step's mask
-  const int u0 = blockIdx.x * U;
-  const int H3 = 3 * H;
-  const bool vec4 = (B * H) % 4 == 0;
+  const int H = a.H, H3 = 3 * H, T = a.T, B = a.B, U = a.U, ns = a.ns;
+  const FwdLayout l = fwd_layout(H, a.R, U);
+  const int J = l.J, R4 = l.R4, S = l.S;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* h_s = smem + l.h;      // [R4][S]: h_{t-1} of the group's rows
+  float* red_s = smem + l.red;  // [M][R4][J]: partial sums of h_{t-1} @ W_slice
+  float* x_s = smem + l.x;      // [2][R][J]: xw of a step for the block's columns
+  float* m_s = smem + l.m;      // [2][R4]: mask of a step
+  float* b_s = smem + l.b;      // [J]: b_h for the block's columns
 
-  // Slice column j = g*U + uu is W_h column g*H + u0 + uu (zero past H).
-  for (int i = threadIdx.x; i < J * H; i += blockDim.x) {
-    const int k = i / J, j = i - k * J;
-    const int g = j / U, u = u0 + (j - g * U);
-    w_s[j * H + k] = u < H ? wh[(long)k * H3 + g * H + u] : 0.0f;
+  const int tid = threadIdx.x;
+  const int chain = blockIdx.x / a.per_chain;
+  const int d = chain / a.groups;
+  const int b0 = (chain - d * a.groups) * a.R;
+  const int rows = max(0, min(a.R, B - b0));
+  const int u0 = (blockIdx.x - chain * a.per_chain) * U;
+  const int units = max(0, min(U, H - u0));  // a multiple of 4
+  const float* xw = a.xw + (long)d * T * B * H3;
+  float* ys = a.ys + (long)d * T * B * H;
+  const long TBH = (long)B * H;
+  auto time_of = [&](int s) { return d ? T - 1 - s : s; };
+
+  if (tid == 0) mbar_init(bar);
+  // this thread's slice of W_slice (column c = g*U + uu is W_h column g*H + u0 + uu)
+  const ProductLane lane(J, ns);
+  float w[kSlice][4];
+  const float* wh = a.wh + (long)d * H * H3 + u0;
+  load_slice(w, lane, ns, [&](int k, int c) {
+    const int g = c / U, uu = c - g * U;
+    return uu < units && k < H ? wh[(long)k * H3 + g * H + uu] : 0.0f;
+  });
+  for (int j = tid; j < J; j += blockDim.x) {
+    const int g = j / U, uu = j - g * U;
+    b_s[j] = uu < units ? a.bh[(long)d * H3 + g * H + u0 + uu] : 0.0f;
   }
+  for (int i = tid; i < R4 * S; i += blockDim.x) h_s[i] = 0.0f;  // padding rows and columns stay 0
+  for (int i = tid; i < 2 * R4; i += blockDim.x) m_s[i] = 0.0f;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  for (int t = 0; t < T; ++t) {
-    // Stage h_{t-1} and this step's inputs together, so their latencies
-    // overlap instead of adding up.
-    const float* hp = t == 0 ? h0 : ys + (long)(t - 1) * B * H;
-    if (vec4) {
-      const float4* hp4 = reinterpret_cast<const float4*>(hp);
-      float4* h_s4 = reinterpret_cast<float4*>(h_s);
-      for (int i = threadIdx.x; i < B * H / 4; i += blockDim.x) h_s4[i] = __ldcg(hp4 + i);
-    } else {
-      for (int i = threadIdx.x; i < B * H; i += blockDim.x) h_s[i] = __ldcg(hp + i);
-    }
-    for (int i = threadIdx.x; i < B * J; i += blockDim.x) {
-      const int b = i / J, j = i - b * J;
-      const int g = j / U, u = u0 + (j - g * U);
-      x_s[i] = u < H ? xw[((long)t * B + b) * H3 + g * H + u] : 0.0f;
-    }
-    for (int b = threadIdx.x; b < B; b += blockDim.x) m_s[b] = mask[(long)t * B + b];
-    __syncthreads();
-
-    for (int j = warp; j < J; j += n_warps) {
-      const float* wj = w_s + j * H;
-      const int g = j / U, u = u0 + (j - g * U);
-      const float bias = u < H ? bh[g * H + u] : 0.0f;
-      for (int b0 = 0; b0 < B; b0 += kRows) {
-        float acc[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-        for (int k = lane; k < H; k += 32) {
-          const float w = wj[k];
-#pragma unroll
-          for (int r = 0; r < kRows; ++r)
-            if (b0 + r < B) acc[r] = fmaf(h_s[(b0 + r) * H + k], w, acc[r]);
-        }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int r = 0; r < kRows; ++r)
-            if (b0 + r < B) hw_s[(b0 + r) * J + j] = acc[r] + bias;
-        }
+  // xw and mask of step s into buffer s & 1 (one cp.async group per call)
+  const int q_u = units / 4;
+  auto fetch = [&](int s) {
+    if (s < T) {
+      const int t = time_of(s);
+      float* xs = x_s + (s & 1) * a.R * J;
+      for (int i = tid; i < rows * 3 * q_u; i += blockDim.x) {
+        const int rr = i / (3 * q_u), rem = i - rr * 3 * q_u;
+        const int g = rem / q_u, q = rem - g * q_u;
+        cp_async16(xs + rr * J + g * U + 4 * q, xw + ((long)t * B + b0 + rr) * H3 + g * H + u0 + 4 * q);
       }
+      for (int rr = tid; rr < rows; rr += blockDim.x)
+        cp_async4(m_s + (s & 1) * R4 + rr, a.mask + (long)t * B + b0 + rr);
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+  fetch(0);
+  // every block's mbarrier is initialized, and its shared memory zeroed,
+  // before any copy into it
+  cluster_sync_for_copies();
+  if (tid == 0) stage_rows(h_s, S, a.h0 + ((long)d * B + b0) * H, H, rows, H, bar, a.cluster);
 
-    for (int i = threadIdx.x; i < B * U; i += blockDim.x) {
-      const int b = i / U, uu = i - b * U, u = u0 + uu;
-      if (u >= H) continue;
-      const float* x = x_s + b * J;
-      const float* hw = hw_s + b * J;
-      const float r = sigmoid(x[uu] + hw[uu]);
-      const float z = sigmoid(x[U + uu] + hw[U + uu]);
-      const float n = tanhf(x[2 * U + uu] + r * hw[2 * U + uu]);
-      const float h_prev = h_s[b * H + u];
+  unsigned int* count = a.count + chain;
+
+  for (int s = 0; s < T; ++s) {
+    const int t = time_of(s);
+    fetch(s + 1);
+    GRU_MARK(s, 0);
+    mbar_wait(bar, s & 1);
+    GRU_MARK(s, 1);
+
+    // 2. h_{t-1} @ W_slice, W from registers
+    product_rows(h_s, S, rows, w, lane, ns, J / 4 * ns, red_s, R4, J, 0);
+    cp_async_wait<1>();  // this step's xw and mask (the next step's may still fly)
+    __syncthreads();
+    GRU_MARK(s, 2);
+
+    // 3. gates of the block's (row, unit) pairs, partial sums added in order
+    const float* xs = x_s + (s & 1) * a.R * J;
+    const float* ms = m_s + (s & 1) * R4;
+    for (int i = tid; i < rows * units; i += blockDim.x) {
+      const int rr = i / units, uu = i - rr * units;
+      float hr = b_s[uu], hz = b_s[U + uu], hn = b_s[2 * U + uu];
+      for (int k = 0; k < l.M; ++k) {
+        const float* red = red_s + ((long)k * R4 + rr) * J;
+        hr += red[uu];
+        hz += red[U + uu];
+        hn += red[2 * U + uu];
+      }
+      const float* x = xs + rr * J;
+      const float r = sigmoid(x[uu] + hr);
+      const float z = sigmoid(x[U + uu] + hz);
+      const float n = tanhf(x[2 * U + uu] + r * hn);
+      const float h_prev = h_s[rr * S + u0 + uu];
       const float h_new = (1.0f - z) * n + z * h_prev;
-      ys[((long)t * B + b) * H + u] = m_s[b] > 0.0f ? h_new : h_prev;
+      ys[(long)t * TBH + (long)(b0 + rr) * H + u0 + uu] = ms[rr] > 0.0f ? h_new : h_prev;
     }
-    if (t + 1 < T) grid_barrier(barrier, barrier + 1, gridDim.x);
+
+    // 4. the chain's step barrier, then the copy of ys[t] for the next step
+    GRU_MARK(s, 3);
+    if (s + 1 < T) {
+      chain_barrier(count, (s + 1) * a.per_chain, s);
+      if (tid == 0) stage_rows(h_s, S, ys + (long)t * TBH + (long)b0 * H, H, rows, H, bar, a.cluster);
+      GRU_MARK(s, 7);
+    }
   }
 }
 
 }  // namespace
 
-// units_per_block: hidden units each block owns; the grid is
-// ceil(H / units_per_block) blocks and must fit on the card at once.
-extern "C" int s2i_gru_fwd(const float* xw, const float* wh, const float* bh,
-                           const float* mask, const float* h0, float* ys,
-                           unsigned int* barrier, int T, int B, int H,
-                           int units_per_block, void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0 || units_per_block <= 0) return cudaErrorInvalidValue;
-  const int U = units_per_block;
-  const int J = 3 * U;
-  const int grid = (H + U - 1) / U;
-  const int threads = 32 * (J < 32 ? J : 32);
-  const size_t smem = sizeof(float) * ((size_t)J * H + (size_t)B * H + 2 * (size_t)B * J + B);
-  int device = 0, smem_max = 0, n_sm = 0, per_sm = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  if (smem > (size_t)smem_max) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gru_fwd_kernel,
-                                                      threads, smem);
-  if (err != cudaSuccess) return err;
-  if ((long)per_sm * n_sm < grid) return cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {(void*)&xw, (void*)&wh, (void*)&bh, (void*)&mask,
-                  (void*)&h0, (void*)&ys, (void*)&barrier, (void*)&T,
-                  (void*)&B, (void*)&H, (void*)&U};
-  err = cudaLaunchCooperativeKernel((const void*)gru_fwd_kernel, dim3(grid),
-                                    dim3(threads), args, smem,
-                                    static_cast<cudaStream_t>(stream));
+// The launch plan for D directions of B rows and H units, in clusters of
+// `cluster` blocks (8 or 4; 0: whichever plan costs less, 8 on a tie):
+// fills plan with {groups, U, per_chain, ns, threads, smem bytes, blocks,
+// cluster}. Least work per block first, then fewest rows to stage, then
+// fewest blocks. Returns 0, or an error if no plan fits the card.
+extern "C" int s2i_gru_fwd_plan(int D, int B, int H, int cluster, int* plan) {
+  if (D <= 0 || B <= 0 || H <= 0 || H % 4 || (cluster && cluster != 4 && cluster != 8)) return cudaErrorInvalidValue;
+  const int n_sm = device_attr(cudaDevAttrMultiProcessorCount);
+  const size_t smem_max = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
+  long best = -1;
+  for (const int C : {8, 4}) {
+    if (cluster && cluster != C) continue;
+    for (int groups = 1; groups <= B; ++groups) {
+      const int R = (B + groups - 1) / groups;
+      if (groups > 1 && (B + R - 1) / R < groups) continue;  // same R as fewer groups
+      for (int U = 4; U <= (H + 3) / 4 * 4; U += 4) {
+        const int per_chain = ((H + U - 1) / U + C - 1) / C * C;
+        const int blocks = D * groups * per_chain;
+        if (blocks > n_sm) continue;
+        const int R4 = (R + 3) & ~3, J = 3 * U;
+        const int ns = slices(H), threads = (J / 4 * ns + 31) / 32 * 32;
+        if (threads > kMaxThreads) break;  // larger U only needs more threads
+        if (fwd_layout(H, R, U).total > smem_max) continue;
+        const size_t smem = one_block_per_sm(fwd_layout(H, R, U).total);
+        const long cost = (((long)R4 * J + R) * 1024 + blocks) * 2 + (C == 4);
+        if (best >= 0 && cost >= best) break;  // larger U only costs more
+        if ((long)max_clusters(gru_fwd_kernel, C, threads, smem) * C < blocks) continue;
+        best = cost;
+        const int p[8] = {groups, U, per_chain, ns, threads, (int)smem, blocks, C};
+        for (int i = 0; i < 8; ++i) plan[i] = p[i];
+        break;  // the smallest U that fits is this group count's best
+      }
+    }
+  }
+  return best >= 0 ? 0 : cudaErrorInvalidValue;
+}
+
+// count: D * groups zeroed words; plan: as s2i_gru_fwd_plan gave it.
+extern "C" int s2i_gru_fwd(const float* xw, const float* wh, const float* bh, const float* mask,
+                           const float* h0, float* ys, unsigned int* count, int D, int T, int B,
+                           int H, const int* plan, void* stream) {
+  if (D <= 0 || T <= 0 || B <= 0 || H <= 0 || H % 4) return cudaErrorInvalidValue;
+  const int groups = plan[0];
+  const FwdArgs args{xw, wh, bh, mask, h0, ys, count, T, B, H, (B + groups - 1) / groups, groups,
+                     plan[1], plan[2], plan[3], plan[7]};
+  cudaError_t err = launch_chains(gru_fwd_kernel, plan[6], plan[7], plan[4], (size_t)plan[5],
+                                  static_cast<cudaStream_t>(stream), args);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-extern "C" int s2i_gru_fwd_max_batch(int H, int units_per_block) {
-  int device = 0, smem_max = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  const long J = 3L * units_per_block;
-  const long free_floats = smem_max / (long)sizeof(float) - J * H;
-  return free_floats > 0 ? (int)(free_floats / (H + 2 * J + 1)) : 0;
+#ifdef GRU_PROFILE
+extern "C" int s2i_gru_prof(long long* out) {
+  return cudaMemcpyFromSymbol(out, gru_prof, sizeof(gru_prof));
 }
+#endif
 
 extern "C" const char* s2i_gru_fwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

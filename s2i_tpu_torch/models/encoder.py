@@ -38,8 +38,10 @@ def conv_pads(t: int, kernel: int, stride: int, mode: str) -> tuple[int, int]:
 class BiGRU(nn.Module):
     """Stacked (bi)directional GRU with ``nn.GRU``'s parameter names and
     layouts (gates r|z|n, ``weight_ih`` [3H, in], ``weight_hh`` [3H, H]).
-    The reverse direction flips the whole padded sequence and its mask, so
-    its leading masked steps keep h = 0 (no packed sequences)."""
+    Each layer is one ``gru_scan`` call over its directions stacked; the
+    reverse direction runs backwards in time over the whole padded sequence
+    and its mask, so its leading masked steps keep h = 0 (no packed
+    sequences)."""
 
     def __init__(self, input_size: int, hidden: int, num_layers: int = 1,
                  bidirectional: bool = True):
@@ -60,26 +62,22 @@ class BiGRU(nn.Module):
                     p = nn.Parameter(torch.empty(shape).uniform_(-bound, bound))
                     self.register_parameter(f"{name}_l{layer}{sfx}", p)
 
-    def _direction(self, x, mask_t, layer: int, sfx: str) -> torch.Tensor:
-        g = lambda name: getattr(self, f"{name}_l{layer}{sfx}")  # noqa: E731
-        xw = F.linear(x, g("weight_ih"), g("bias_ih"))  # [B, T, 3H]: one product
-        xw = xw.transpose(0, 1)  # [T, B, 3H]
-        if sfx:
-            xw = xw.flip(0)
-            mask_t = mask_t.flip(0)
-        h0 = x.new_zeros((x.shape[0], self.hidden))
-        ys = gru_scan(xw.contiguous(), g("weight_hh").t().contiguous(), g("bias_hh"), mask_t, h0)
-        if sfx:
-            ys = ys.flip(0)
-        return ys.transpose(0, 1)  # [B, T, H]
+    def _layer(self, x, mask_t, layer: int) -> torch.Tensor:
+        stack = lambda name: [getattr(self, f"{name}_l{layer}{sfx}") for sfx in self.directions]  # noqa: E731
+        b, t, _ = x.shape
+        n_dir = len(self.directions)
+        # every direction's input projection in one product: [B, T, D*3H]
+        xw = F.linear(x, torch.cat(stack("weight_ih")), torch.cat(stack("bias_ih")))
+        xw = xw.view(b, t, n_dir, 3 * self.hidden).permute(2, 1, 0, 3).contiguous()  # [D, T, B, 3H]
+        w_h = torch.stack([w.t() for w in stack("weight_hh")])  # [D, H, 3H]
+        h0 = x.new_zeros((n_dir, b, self.hidden))
+        ys = gru_scan(xw, w_h, torch.stack(stack("bias_hh")), mask_t, h0)  # [D, T, B, H]
+        return ys.permute(2, 1, 0, 3).reshape(b, t, n_dir * self.hidden)  # [B, T, D*H]
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         mask_t = mask.t().float().contiguous()  # [T, B]
         for layer in range(self.num_layers):
-            x = torch.cat(
-                [self._direction(x, mask_t, layer, sfx) for sfx in self.directions],
-                dim=-1,
-            )
+            x = self._layer(x, mask_t, layer)
         return x
 
 

@@ -7,10 +7,11 @@ Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
 The library lands in ``s2i_tpu_torch/_build/`` (listed in ``.gitignore``),
-named by a hash of its source and flags, so an edited source never loads a
-stale build. It is built at first use in a process, or ahead of time by
-:func:`build_all`, which starts one ``nvcc`` per source at once. A failed
-build raises; there is nothing to fall back to.
+named by a hash of its source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header never loads a stale build. It is
+built at first use in a process, or ahead of time by :func:`build_all`,
+which starts one ``nvcc`` per source at once. A failed build raises; there
+is nothing to fall back to.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,30 +1,40 @@
 """GRU recurrence and its gradient: the hand-written CUDA kernels and their
 plain versions.
 
-``gru_scan(xw, w_h, b_h, mask, h0)`` has the contract of the JAX package's
-``fused_gru``, custom VJP included:
+``gru_scan(xw, w_h, b_h, mask, h0)`` runs the directions of one layer at
+once. Each direction has the contract of the JAX package's ``fused_gru``,
+custom VJP included; the directions come stacked on a leading axis D (1 or
+2) and share the mask:
 
-    xw   [T, B, 3H]  precomputed input projections, gate order r | z | n
-    w_h  [H, 3H]     recurrent kernel
-    b_h  [3H]        recurrent bias (b_hn sits inside r * (...))
-    mask [T, B]      > 0 for valid steps; h is carried through the others
-    h0   [B, H]      initial hidden state
-    → ys [T, B, H]
+    xw   [D, T, B, 3H]  precomputed input projections, gate order r | z | n
+    w_h  [D, H, 3H]     recurrent kernel
+    b_h  [D, 3H]        recurrent bias (b_hn sits inside r * (...))
+    mask [T, B]         > 0 for valid steps; h is carried through the others
+    h0   [D, B, H]      initial hidden state
+    → ys [D, T, B, H]
+
+Direction 1 runs backwards in time over the unflipped arrays: its result
+is direction 0's scan of the flipped sequence and mask, flipped back, so
+the leading masked steps of a reversed padded row keep h = h0.
 
 It is :class:`GRUScan`: the forward saves only its inputs and ``ys`` and the
 backward recomputes the gates, as the JAX VJP does. A CUDA tensor goes
-through ``csrc/gru_fwd.cu`` forward and ``csrc/gru_bwd.cu`` backward; a CPU
-tensor through :func:`gru_scan_plain` and :func:`gru_scan_bwd_plain`, by the
-same autograd wiring. Nothing falls back from one to the other.
+through ``csrc/gru_fwd.cu`` forward and ``csrc/gru_bwd.cu`` backward, one
+launch each for all directions; a CPU tensor through :func:`gru_scan_plain`
+and :func:`gru_scan_bwd_plain`, by the same autograd wiring. Nothing falls
+back from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from s2i_tpu_torch.ops import build
+
+_PLAN_INTS = 9
 
 
 def _gates(xw_t, hw):
@@ -36,8 +46,8 @@ def _gates(xw_t, hw):
     return r, z, n, hn
 
 
-def gru_scan_plain(xw, w_h, b_h, mask, h0):
-    """Plain PyTorch recurrence, one step per loop iteration."""
+def _scan_plain(xw, w_h, b_h, mask, h0):
+    """One direction forward in time: ys [T, B, H]."""
     h = h0
     ys = []
     for t in range(xw.shape[0]):
@@ -48,9 +58,9 @@ def gru_scan_plain(xw, w_h, b_h, mask, h0):
     return torch.stack(ys)
 
 
-def gru_scan_bwd_plain(xw, w_h, b_h, mask, h0, ys, dys):
-    """Plain PyTorch reverse scan with the Pallas ``_bwd_kernel``'s math:
-    (dxw [T, B, 3H], dw_h [H, 3H], db_h [3H], dh0 [B, H])."""
+def _scan_bwd_plain(xw, w_h, b_h, mask, h0, ys, dys):
+    """The reverse scan of one forward-in-time direction, with the Pallas
+    ``_bwd_kernel``'s math: (dxw, dw_h, db_h, dh0)."""
     dh = torch.zeros_like(h0)
     dw_h = torch.zeros_like(w_h)
     db_h = torch.zeros_like(b_h)
@@ -73,15 +83,38 @@ def gru_scan_bwd_plain(xw, w_h, b_h, mask, h0, ys, dys):
     return dxw, dw_h, db_h, dh
 
 
+def gru_scan_plain(xw, w_h, b_h, mask, h0):
+    """Plain PyTorch recurrence, one step per loop iteration: ys [D, T, B, H]."""
+    ys = []
+    for d in range(xw.shape[0]):
+        if d == 0:
+            ys.append(_scan_plain(xw[d], w_h[d], b_h[d], mask, h0[d]))
+        else:
+            ys.append(_scan_plain(xw[d].flip(0), w_h[d], b_h[d], mask.flip(0), h0[d]).flip(0))
+    return torch.stack(ys)
+
+
+def gru_scan_bwd_plain(xw, w_h, b_h, mask, h0, ys, dys):
+    """Plain PyTorch reverse scan of every direction: (dxw [D, T, B, 3H],
+    dw_h [D, H, 3H], db_h [D, 3H], dh0 [D, B, H])."""
+    grads = []
+    for d in range(xw.shape[0]):
+        if d == 0:
+            grads.append(_scan_bwd_plain(xw[d], w_h[d], b_h[d], mask, h0[d], ys[d], dys[d]))
+        else:
+            dxw, dw_h, db_h, dh0 = _scan_bwd_plain(
+                xw[d].flip(0), w_h[d], b_h[d], mask.flip(0), h0[d], ys[d].flip(0), dys[d].flip(0))
+            grads.append((dxw.flip(0), dw_h, db_h, dh0))
+    return tuple(torch.stack(g) for g in zip(*grads))
+
+
 def _fwd_lib() -> ctypes.CDLL:
     lib = build.load("gru_fwd")
     if lib.s2i_gru_fwd.argtypes is None:
-        lib.s2i_gru_fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p
-        ]
+        lib.s2i_gru_fwd_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.s2i_gru_fwd_plan.restype = ctypes.c_int
+        lib.s2i_gru_fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
         lib.s2i_gru_fwd.restype = ctypes.c_int
-        lib.s2i_gru_fwd_max_batch.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.s2i_gru_fwd_max_batch.restype = ctypes.c_int
         lib.s2i_gru_fwd_error_string.argtypes = [ctypes.c_int]
         lib.s2i_gru_fwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -90,30 +123,49 @@ def _fwd_lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("gru_bwd")
     if lib.s2i_gru_bwd.argtypes is None:
-        lib.s2i_gru_bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p
-        ]
+        lib.s2i_gru_bwd_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.s2i_gru_bwd_plan.restype = ctypes.c_int
+        lib.s2i_gru_bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
         lib.s2i_gru_bwd.restype = ctypes.c_int
-        lib.s2i_gru_bwd_workspace.argtypes = [ctypes.c_int] * 3
+        lib.s2i_gru_bwd_workspace.argtypes = [ctypes.c_int] * 4
         lib.s2i_gru_bwd_workspace.restype = ctypes.c_long
         lib.s2i_gru_bwd_error_string.argtypes = [ctypes.c_int]
         lib.s2i_gru_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _plan(kind: str, d: int, b: int, h: int, device: int, cluster: int = 0):
+    """(rows per launch, the kernel's launch plan) for ``kind`` ("fwd" or
+    "bwd") in clusters of ``cluster`` blocks (0: the plan's choice, as the
+    wrappers use it): all ``b`` rows in one launch if a plan fits the card,
+    else the largest row count that does (the rows are independent
+    chains)."""
+    lib = _fwd_lib() if kind == "fwd" else _bwd_lib()
+    plan_fn = lib.s2i_gru_fwd_plan if kind == "fwd" else lib.s2i_gru_bwd_plan
+    plan = (ctypes.c_int * _PLAN_INTS)()
+    with torch.cuda.device(device):
+        rows = b
+        while plan_fn(d, rows, h, cluster, plan) != 0:
+            if rows == 1:
+                raise ValueError(f"the GRU {kind} kernel has no launch plan for D={d}, H={h} on this card")
+            rows = (rows + 1) // 2
+    return rows, plan
+
+
 def _check_args(xw, w_h, b_h, mask, h0, **states) -> None:
-    """Shapes, devices and dtypes; ``states`` are ys/dys [T, B, H]."""
-    if xw.ndim != 3 or xw.shape[-1] % 3:
-        raise ValueError(f"xw must be [T, B, 3H], got {tuple(xw.shape)}")
-    t, b, h3 = xw.shape
+    """Shapes, devices and dtypes; ``states`` are ys/dys [D, T, B, H]."""
+    if xw.ndim != 4 or xw.shape[-1] % 3 or xw.shape[0] not in (1, 2):
+        raise ValueError(f"xw must be [D, T, B, 3H] with D 1 or 2, got {tuple(xw.shape)}")
+    d, t, b, h3 = xw.shape
     h = h3 // 3
     want = {
-        "xw": (xw, (t, b, 3 * h)),
-        "w_h": (w_h, (h, 3 * h)),
-        "b_h": (b_h, (3 * h,)),
+        "xw": (xw, (d, t, b, 3 * h)),
+        "w_h": (w_h, (d, h, 3 * h)),
+        "b_h": (b_h, (d, 3 * h)),
         "mask": (mask, (t, b)),
-        "h0": (h0, (b, h)),
-        **{name: (x, (t, b, h)) for name, x in states.items()},
+        "h0": (h0, (d, b, h)),
+        **{name: (x, (d, t, b, h)) for name, x in states.items()},
     }
     for name, (x, shape) in want.items():
         if tuple(x.shape) != shape:
@@ -124,82 +176,105 @@ def _check_args(xw, w_h, b_h, mask, h0, **states) -> None:
             raise ValueError(f"{name}: expected float32, got {x.dtype}")
     if xw.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {xw.device}")
+    if xw.device.type == "cuda" and h % 4:
+        raise ValueError(f"the GRU kernels copy rows in 16-byte pieces: H={h} is not a multiple of 4")
+
+
+def _row_chunks(b: int, rows: int):
+    """(r0, r1) slices of the batch, one per launch."""
+    return [(r0, min(b, r0 + rows)) for r0 in range(0, b, rows)]
+
+
+def _rows(x, r0, r1, b, axis):
+    """Rows [r0, r1) of x along ``axis`` as a contiguous tensor (x itself
+    when that is all of it)."""
+    return x if (r0, r1) == (0, b) else x.narrow(axis, r0, r1 - r0).contiguous()
 
 
 def _gru_fwd(xw, w_h, b_h, mask, h0):
-    """ys [T, B, H]: K2 for CUDA tensors, :func:`gru_scan_plain` for CPU
+    """ys [D, T, B, H]: K2 for CUDA tensors, :func:`gru_scan_plain` for CPU
     tensors. Counts its launches on :func:`gru_scan`."""
     if xw.device.type == "cpu":
         return gru_scan_plain(xw, w_h, b_h, mask, h0)
-    t, b, h3 = xw.shape
+    d, t, b, h3 = xw.shape
     h = h3 // 3
-    ys = torch.empty((t, b, h), device=xw.device)
+    ys = torch.empty((d, t, b, h), device=xw.device)
     if t == 0:
         return ys
     xw, w_h, b_h, h0 = (x.contiguous() for x in (xw, w_h, b_h, h0))
-    mask = (mask > 0).float()
-    n_sm = torch.cuda.get_device_properties(xw.device).multi_processor_count
-    units = -(-h // n_sm)  # hidden units per block: one block per SM at most
+    mask = (mask > 0).float().contiguous()
     lib = _fwd_lib()
-    rows = lib.s2i_gru_fwd_max_batch(h, units)
-    if rows <= 0:
-        raise ValueError(f"hidden size {h} needs more shared memory than a block has")
+    rows = _plan("fwd", d, b, h, xw.device.index)[0]
     stream = torch.cuda.current_stream(xw.device).cuda_stream
-    # Batch rows are independent: a batch too large for one block's shared
-    # memory runs as several launches over row chunks.
-    for r0 in range(0, b, rows):
-        r1 = min(b, r0 + rows)
-        # slices of the whole batch are the tensors themselves: no copies
-        x_c = xw[:, r0:r1].contiguous()
-        m_c = mask[:, r0:r1].contiguous()
-        h_c = h0[r0:r1].contiguous()
-        y_c = ys[:, r0:r1].contiguous()
-        barrier = torch.zeros(2, dtype=torch.int32, device=xw.device)
+    for r0, r1 in _row_chunks(b, rows):
+        plan = _plan("fwd", d, r1 - r0, h, xw.device.index)[1]
+        x_c, m_c, h_c = _rows(xw, r0, r1, b, 2), _rows(mask, r0, r1, b, 1), _rows(h0, r0, r1, b, 1)
+        y_c = ys if (r0, r1) == (0, b) else torch.empty((d, t, r1 - r0, h), device=xw.device)
+        count = torch.zeros(d * plan[0], dtype=torch.int32, device=xw.device)
         err = lib.s2i_gru_fwd(
-            x_c.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), m_c.data_ptr(),
-            h_c.data_ptr(), y_c.data_ptr(), barrier.data_ptr(),
-            t, r1 - r0, h, units, stream,
+            x_c.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), m_c.data_ptr(), h_c.data_ptr(),
+            y_c.data_ptr(), count.data_ptr(), d, t, r1 - r0, h, plan, stream,
         )
         if err:
-            raise RuntimeError(
-                f"gru_fwd kernel: {lib.s2i_gru_fwd_error_string(err).decode()}"
-            )
+            raise RuntimeError(f"gru_fwd kernel: {lib.s2i_gru_fwd_error_string(err).decode()}")
         gru_scan.launches += 1
-        if y_c.data_ptr() != ys[:, r0:r1].data_ptr():
-            ys[:, r0:r1] = y_c
+        if y_c is not ys:
+            ys[:, :, r0:r1] = y_c
     return ys
 
 
-def gru_scan_bwd(xw, w_h, b_h, mask, h0, ys, dys):
+def gru_scan_bwd(xw, w_h, b_h, mask, h0, ys, dys, events=None):
     """(dxw, dw_h, db_h, dh0): K3 for CUDA tensors, :func:`gru_scan_bwd_plain`
     for CPU tensors. ``ys`` is the forward's output and ``dys`` its incoming
-    gradient (made contiguous here: it arrives from flips and transposes)."""
+    gradient (made contiguous here: it arrives from slices and transposes).
+    ``events``: None, or four ``torch.cuda.Event(enable_timing=True)`` that
+    the kernel records before its gate SGEMM, after it, after the chain and
+    after dW_h and db_h (a batch too large for one launch records them on
+    its last launch)."""
     _check_args(xw, w_h, b_h, mask, h0, ys=ys, dys=dys)
     dys = dys.contiguous()
     if xw.device.type == "cpu":
         return gru_scan_bwd_plain(xw, w_h, b_h, mask, h0, ys, dys)
-    t, b, h3 = xw.shape
+    d, t, b, h3 = xw.shape
     h = h3 // 3
     if t == 0:
         return torch.zeros_like(xw), torch.zeros_like(w_h), torch.zeros_like(b_h), torch.zeros_like(h0)
-    if h % 4:
-        raise ValueError(f"the GRU backward kernel reads rows in 16-byte pieces: H={h} is not a multiple of 4")
     xw, w_h, b_h, h0, ys = (x.contiguous() for x in (xw, w_h, b_h, h0, ys))
     mask = (mask > 0).float().contiguous()
-    dxw, dw_h, db_h, dh0 = (torch.empty_like(x) for x in (xw, w_h, b_h, h0))
     lib = _bwd_lib()
-    workspace = torch.empty(lib.s2i_gru_bwd_workspace(t, b, h), device=xw.device)
-    # one arrival counter per row group of the scan (at most b), zeroed by s2i_gru_bwd
-    barrier = torch.empty(b, dtype=torch.int32, device=xw.device)
+    rows = _plan("bwd", d, b, h, xw.device.index)[0]
     stream = torch.cuda.current_stream(xw.device).cuda_stream
-    err = lib.s2i_gru_bwd(
-        xw.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask.data_ptr(), h0.data_ptr(),
-        ys.data_ptr(), dys.data_ptr(), dxw.data_ptr(), dw_h.data_ptr(), db_h.data_ptr(),
-        dh0.data_ptr(), workspace.data_ptr(), barrier.data_ptr(), t, b, h, stream,
-    )
-    if err:
-        raise RuntimeError(f"gru_bwd kernel: {lib.s2i_gru_bwd_error_string(err).decode()}")
-    gru_scan_bwd.launches += 1
+    handles = None
+    if events is not None:
+        for ev in events:
+            ev.record()  # creates the event the kernel records into
+        handles = (ctypes.c_void_p * 4)(*(ev.cuda_event for ev in events))
+    dxw, dh0 = torch.empty_like(xw), torch.empty_like(h0)
+    dw_h = db_h = None
+    for r0, r1 in _row_chunks(b, rows):
+        n = r1 - r0
+        plan = _plan("bwd", d, n, h, xw.device.index)[1]
+        x_c, m_c, h_c, y_c, g_c = (_rows(x, r0, r1, b, ax) for x, ax in
+                                   ((xw, 2), (mask, 1), (h0, 1), (ys, 2), (dys, 2)))
+        dx_c = dxw if n == b else torch.empty_like(x_c)
+        dh_c = dh0 if n == b else torch.empty_like(h_c)
+        dw_c, db_c = torch.empty_like(w_h), torch.empty_like(b_h)
+        workspace = torch.empty(lib.s2i_gru_bwd_workspace(d, t, n, h), device=xw.device)
+        count = torch.zeros(d * plan[0], dtype=torch.int32, device=xw.device)
+        err = lib.s2i_gru_bwd(
+            x_c.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), m_c.data_ptr(), h_c.data_ptr(),
+            y_c.data_ptr(), g_c.data_ptr(), dx_c.data_ptr(), dw_c.data_ptr(), db_c.data_ptr(),
+            dh_c.data_ptr(), workspace.data_ptr(), count.data_ptr(), d, t, n, h, plan,
+            handles if r1 == b else None, stream,
+        )
+        if err:
+            raise RuntimeError(f"gru_bwd kernel: {lib.s2i_gru_bwd_error_string(err).decode()}")
+        gru_scan_bwd.launches += 1
+        if n != b:
+            dxw[:, :, r0:r1] = dx_c
+            dh0[:, r0:r1] = dh_c
+        # row chunks' weight gradients are added in order: the same every run
+        dw_h, db_h = (dw_c, db_c) if dw_h is None else (dw_h + dw_c, db_h + db_c)
     return dxw, dw_h, db_h, dh0
 
 
@@ -221,7 +296,7 @@ class GRUScan(torch.autograd.Function):
 
 
 def gru_scan(xw, w_h, b_h, mask, h0):
-    """ys [T, B, H] through :class:`GRUScan`."""
+    """ys [D, T, B, H] through :class:`GRUScan`."""
     _check_args(xw, w_h, b_h, mask, h0)
     return GRUScan.apply(xw, w_h, b_h, mask, h0)
 

@@ -123,81 +123,150 @@ def test_extract_features_on_the_card_matches_cpu(card):
     np.testing.assert_allclose(got_f.cpu().numpy(), want_f.numpy(), atol=2e-4, rtol=0)
 
 
-@pytest.mark.parametrize(
-    "t,b,h",
-    [(64, 5, 96), (12, 3, 16), (8, 100, 512), (128, 24, 512)],  # b100: two row chunks; b24: joint's batch
-    ids=["h96", "h16", "b100-h512", "joint-b24"],
-)
-def test_gru_kernel_matches_plain(card, t, b, h):
-    rng = np.random.default_rng(t + b + h)
+def _gru_args(t, b, h, card, d=1):
+    """Seeded stacked inputs [D, ...] on the card: ragged lengths with a full
+    row first and an all-masked row last (when b > 1), non-zero h0; and dys."""
+    rng = np.random.default_rng(t + b + h + d)
     lens = rng.integers(1, t + 1, b)
-    lens[0], lens[-1] = t, 0  # full, ragged, all-masked
+    lens[0] = t
+    if b > 1:
+        lens[-1] = 0
     args = dict(
-        xw=rng.standard_normal((t, b, 3 * h)),
-        w_h=rng.standard_normal((h, 3 * h)) / np.sqrt(h),
-        b_h=0.1 * rng.standard_normal(3 * h),
+        xw=rng.standard_normal((d, t, b, 3 * h)),
+        w_h=rng.standard_normal((d, h, 3 * h)) / np.sqrt(h),
+        b_h=0.1 * rng.standard_normal((d, 3 * h)),
         mask=np.arange(t)[:, None] < lens[None, :],
-        h0=0.5 * rng.standard_normal((b, h)),
+        h0=0.5 * rng.standard_normal((d, b, h)),
     )
     dev = {k: torch.from_numpy(np.asarray(v, np.float32)).to(card) for k, v in args.items()}
-    before = gru_kernel.gru_scan.launches
-    got = gru_kernel.gru_scan(**dev)
-    torch.cuda.synchronize()
-    assert gru_kernel.gru_scan.launches > before
-    want = gru_kernel.gru_scan_plain(**dev)
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5, rtol=0)
-    # the all-masked row carries h0 through every step
-    np.testing.assert_array_equal(got[:, -1].cpu().numpy(), np.broadcast_to(args["h0"][-1], (t, h)).astype(np.float32))
-
-
-def _gru_args(t, b, h, card):
-    rng = np.random.default_rng(t + b + h)
-    lens = rng.integers(1, t + 1, b)
-    lens[0], lens[-1] = t, 0  # full, ragged, all-masked
-    args = dict(
-        xw=rng.standard_normal((t, b, 3 * h)),
-        w_h=rng.standard_normal((h, 3 * h)) / np.sqrt(h),
-        b_h=0.1 * rng.standard_normal(3 * h),
-        mask=np.arange(t)[:, None] < lens[None, :],
-        h0=0.5 * rng.standard_normal((b, h)),
-    )
-    dev = {k: torch.from_numpy(np.asarray(v, np.float32)).to(card) for k, v in args.items()}
-    dys = torch.from_numpy(rng.standard_normal((t, b, h)).astype(np.float32)).to(card)
+    dys = torch.from_numpy(rng.standard_normal((d, t, b, h)).astype(np.float32)).to(card)
     return dev, dys
 
 
-def _assert_grads_close(got, want):
+def _check_fwd(dev):
+    before = gru_kernel.gru_scan.launches
+    got = gru_kernel.gru_scan(**dev)
+    torch.cuda.synchronize()
+    assert gru_kernel.gru_scan.launches == before + 1
+    want = gru_kernel.gru_scan_plain(**dev)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5, rtol=0)
+    return got
+
+
+def _assert_grads_close(got, want, sum_scale=1.0):
+    """5e-6 of each output's largest magnitude; dW_h and db_h, which sum T·B
+    products, ``sum_scale`` times that (for sums longer than T=128's)."""
     for name, g, w in zip(("dxw", "dw_h", "db_h", "dh0"), got, want):
         err = (g - w).abs().max().item()
-        assert err <= 5e-6 * max(1.0, w.abs().max().item()), (name, err)
+        tol = 5e-6 * (sum_scale if name in ("dw_h", "db_h") else 1.0)
+        assert err <= tol * max(1.0, w.abs().max().item()), (name, err)
 
 
-@pytest.mark.parametrize(
-    "t,b,h",
-    # b=100: two row chunks; b=24 (the joint finetune's batch): a partial row group
-    [(12, 3, 16), (64, 5, 96), (8, 100, 512), (128, 64, 512), (128, 24, 512)],
-    ids=["h16", "h96", "b100-h512", "encoder-b64", "joint-b24"],
-)
-def test_gru_bwd_kernel_matches_plain(card, t, b, h):
-    dev, dys = _gru_args(t, b, h, card)
+def _check_bwd(dev, dys, sum_scale=1.0):
     ys = gru_kernel.gru_scan_plain(**dev)
     before = gru_kernel.gru_scan_bwd.launches
     got = gru_kernel.gru_scan_bwd(**dev, ys=ys, dys=dys)
     torch.cuda.synchronize()
     assert gru_kernel.gru_scan_bwd.launches == before + 1
-    _assert_grads_close(got, gru_kernel.gru_scan_bwd_plain(**dev, ys=ys, dys=dys))
+    _assert_grads_close(got, gru_kernel.gru_scan_bwd_plain(**dev, ys=ys, dys=dys), sum_scale)
+    return got
+
+
+@pytest.mark.parametrize(
+    "t,b,h",
+    [(64, 5, 96), (12, 3, 16), (8, 100, 512), (128, 24, 512)],  # b100: two row groups; b24: the joint's batch
+    ids=["h96", "h16", "b100-h512", "joint-b24"],
+)
+def test_gru_kernel_matches_plain(card, t, b, h):
+    dev, _ = _gru_args(t, b, h, card)
+    got = _check_fwd(dev)
+    # the all-masked row carries h0 through every step
+    np.testing.assert_array_equal(got[0, :, -1].cpu().numpy(), np.broadcast_to(dev["h0"][0, -1].cpu().numpy(), (t, h)))
+
+
+@pytest.mark.parametrize(
+    "t,b,h",
+    # b=100: more rows than one launch takes; b=24 (the joint finetune's batch): a partial row group
+    [(12, 3, 16), (64, 5, 96), (8, 100, 512), (128, 64, 512), (128, 24, 512)],
+    ids=["h16", "h96", "b100-h512", "encoder-b64", "joint-b24"],
+)
+def test_gru_bwd_kernel_matches_plain(card, t, b, h):
+    dev, dys = _gru_args(t, b, h, card)
+    got = _check_bwd(dev, dys)
     # the all-masked row: nothing reaches its gates
-    assert not got[0][:, -1].any()
+    assert not got[0][:, :, -1].any()
+
+
+# Both kernels over the launch plans: one and two directions; B from 1 to 65
+# (65 crosses a row group at D=2); H=200, whose unit blocks do not fill a
+# cluster; one step and the encoder's 128.
+GRID = [(d, t, b, h) for d in (1, 2) for t in (1, 128) for b in (1, 7, 24, 64, 65) for h in (64, 200, 512)]
+
+
+@pytest.mark.parametrize("d,t,b,h", GRID, ids=[f"D{d}-T{t}-B{b}-H{h}" for d, t, b, h in GRID])
+def test_gru_kernels_match_plain_over_plans(card, d, t, b, h):
+    dev, dys = _gru_args(t, b, h, card, d)
+    _check_fwd(dev)
+    _check_bwd(dev, dys)
+
+
+def test_gru_kernels_match_plain_past_one_launch(card):
+    """B=200 at D=2 is more rows than one launch of either kernel takes:
+    the wrappers split the batch into row chunks, and K3 adds the chunks'
+    weight gradients in order."""
+    dev, dys = _gru_args(24, 200, 512, card, d=2)
+    before = gru_kernel.gru_scan.launches, gru_kernel.gru_scan_bwd.launches
+    got = gru_kernel.gru_scan(**dev)
+    ys = gru_kernel.gru_scan_plain(**dev)
+    grads = gru_kernel.gru_scan_bwd(**dev, ys=ys, dys=dys)
+    torch.cuda.synchronize()
+    assert gru_kernel.gru_scan.launches > before[0] + 1 and gru_kernel.gru_scan_bwd.launches > before[1] + 1
+    np.testing.assert_allclose(got.cpu().numpy(), ys.cpu().numpy(), atol=1e-5, rtol=0)
+    _assert_grads_close(grads, gru_kernel.gru_scan_bwd_plain(**dev, ys=ys, dys=dys))
+
+
+def test_gru_two_directions_match_two_calls_on_flipped_inputs(card):
+    dev, dys = _gru_args(128, 24, 512, card, d=2)
+    ys = gru_kernel.gru_scan(**dev)
+    grads = gru_kernel.gru_scan_bwd(**dev, ys=ys, dys=dys)
+    for d, flip in ((0, False), (1, True)):
+        f = (lambda x: x.flip(0)) if flip else (lambda x: x)  # noqa: E731
+        one = dict(xw=f(dev["xw"][d])[None], w_h=dev["w_h"][d:d + 1], b_h=dev["b_h"][d:d + 1],
+                   mask=f(dev["mask"]), h0=dev["h0"][d:d + 1])
+        ys1 = gru_kernel.gru_scan(**one)
+        g1 = gru_kernel.gru_scan_bwd(**one, ys=ys1, dys=f(dys[d])[None])
+        torch.testing.assert_close(ys[d], f(ys1[0]), atol=1e-5, rtol=0)
+        want = (f(g1[0][0]), g1[1][0], g1[2][0], g1[3][0])
+        _assert_grads_close([g[d] for g in grads], want)
+
+
+def test_gru_long_sequence_has_no_stale_state(card):
+    """1024 steps of both directions at the encoder's width: a step that read
+    h_{t-1} or dhg[t] before every block had written it would show here, in
+    ys, dxw and dh0 at the usual tolerances. dW_h and db_h sum 8 times as
+    many products as at T=128, and are held to 8 times its tolerance."""
+    dev, dys = _gru_args(1024, 64, 512, card, d=2)
+    _check_fwd(dev)
+    _check_bwd(dev, dys, sum_scale=1024 / 128)
+
+
+def test_gru_bwd_is_bitwise_repeatable(card):
+    dev, dys = _gru_args(128, 64, 512, card, d=2)
+    ys = gru_kernel.gru_scan(**dev)
+    first = gru_kernel.gru_scan_bwd(**dev, ys=ys, dys=dys)
+    second = gru_kernel.gru_scan_bwd(**dev, ys=ys, dys=dys)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_gru_scan_backward_on_the_card_matches_autograd(card):
-    dev, dys = _gru_args(20, 6, 64, card)
+    dev, dys = _gru_args(20, 6, 64, card, d=2)
     leaves = [dev[k].requires_grad_() for k in ("xw", "w_h", "b_h", "h0")]
     want = torch.autograd.grad(gru_kernel.gru_scan_plain(**dev), leaves, dys)
     before = gru_kernel.gru_scan.launches, gru_kernel.gru_scan_bwd.launches
     ys = gru_kernel.gru_scan(**dev)
-    # a transposed gradient, as the encoder's reverse direction gives it
-    got = torch.autograd.grad(ys, leaves, dys.transpose(0, 1).contiguous().transpose(0, 1))
+    # a permuted gradient, as the encoder's [B, T, D*H] output gives it
+    got = torch.autograd.grad(ys, leaves, dys.permute(2, 1, 0, 3).contiguous().permute(2, 1, 0, 3))
     torch.cuda.synchronize()
     assert gru_kernel.gru_scan.launches == before[0] + 1
     assert gru_kernel.gru_scan_bwd.launches == before[1] + 1
@@ -215,9 +284,9 @@ def test_gru_wrapper_rejects_mixed_devices(card):
     t, b, h = 4, 2, 8
     with pytest.raises(ValueError, match="w_h"):
         gru_kernel.gru_scan(
-            torch.zeros(t, b, 3 * h, device=card), torch.zeros(h, 3 * h),
-            torch.zeros(3 * h, device=card), torch.ones(t, b, device=card),
-            torch.zeros(b, h, device=card),
+            torch.zeros(1, t, b, 3 * h, device=card), torch.zeros(1, h, 3 * h),
+            torch.zeros(1, 3 * h, device=card), torch.ones(t, b, device=card),
+            torch.zeros(1, b, h, device=card),
         )
 
 
