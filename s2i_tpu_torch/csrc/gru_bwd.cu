@@ -19,8 +19,9 @@
 // (0.08 ms). The carry's chain of T dependent steps is the part that cannot
 // use the whole card at once: each step needs the whole of dhg[t] of a row
 // before any dh_{t-1} of it. Measured on an H100 (700 W) at B=64, D=2
-// (chip_smoke.py's parts, gru_ab --profile): the chain is ~57% of the call,
-// and ~65% of a chain step is its product; the two SGEMMs are the rest.
+// (chip_smoke.py's parts; clock64 marks in a chain step, PERF.md): the chain is
+// ~57% of the call, and ~65% of a chain step is its product; the two SGEMMs
+// are the rest.
 //
 // Design: only the carry is sequential, so only the carry runs step by step.
 //   1. gates: one tiled SGEMM (128x128 tiles, 8x8 per thread, two shared
@@ -204,10 +205,9 @@ struct ChainArgs {
   int R;          // rows per group
   int groups;     // row groups per direction
   int U;          // hidden units per block, a multiple of 4
-  int per_chain;  // blocks per chain, a multiple of the cluster size
+  int per_chain;  // blocks per chain, a multiple of kCluster
   int ns;         // slices of the 3H sum (a multiple of 16)
   int RC;         // rows of dhg[t] per staged chunk, a multiple of 4
-  int cluster;    // blocks per cluster
 };
 
 struct ChainLayout {
@@ -300,7 +300,6 @@ __global__ void __launch_bounds__(kMaxThreads, 1) gru_bwd_chain_kernel(const Cha
   for (int s = 0; s < T; ++s) {
     const int t = time_of(s);
     const float* dhg_t = dhg + ((long)t * B + b0) * H3;
-    GRU_MARK(s, 0);
     // a. gates of the block's pairs; dxw[t] and dhg[t] for them
 #pragma unroll
     for (int p = 0; p < kPairs; ++p) {
@@ -327,24 +326,21 @@ __global__ void __launch_bounds__(kMaxThreads, 1) gru_bwd_chain_kernel(const Cha
       g[2 * H + u] = dn_pre * r;
       base_s[rr * U + uu] = valid ? dh_upd * z : dh_tot;
     }
-    GRU_MARK(s, 1);
 
     // b. the chain's step barrier; c. the first two chunks of dhg[t]'s rows
-    chain_barrier(count, (s + 1) * a.per_chain, s);
+    chain_barrier(count, (s + 1) * a.per_chain);
     auto stage = [&](int c) {
       const int n = max(0, min(RC, rows - c * RC));
-      stage_rows(g_s + (size_t)(c & 1) * RC * KS, KS, dhg_t + (long)c * RC * H3, H3, n, H3, bars + (c & 1), a.cluster);
+      stage_rows(g_s + (size_t)(c & 1) * RC * KS, KS, dhg_t + (long)c * RC * H3, H3, n, H3, bars + (c & 1));
     };
     if (tid == 0)
       for (int c = 0; c < l.NB; ++c) stage(c);
     if (s + 1 < T) fetch(s + 1);  // in flight while the chunks land
-    GRU_MARK(s, 7);
 
     // d. dhg[t] @ W_h^T, chunk by chunk of rows, W from registers
     for (int c = 0; c < NC; ++c) {
       const int buf = c & 1;
       mbar_wait(bars + buf, (phase >> buf) & 1);
-      if (c == 0) GRU_MARK(s, 8);
       phase ^= 1u << buf;
       product_rows(g_s + (size_t)buf * RC * KS, KS, min(RC, rows - c * RC), w, lane, ns, U / 4 * ns, red_s, R4, U,
                    c * RC);
@@ -354,14 +350,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1) gru_bwd_chain_kernel(const Cha
       }
     }
     __syncthreads();
-    GRU_MARK(s, 2);
     for (int i = tid; i < RU; i += blockDim.x) {
       float sum = 0.0f;
       for (int k = 0; k < l.M; ++k) sum += red_s[(size_t)k * RU + i];
       dh_s[i] = base_s[i] + sum;
     }
     __syncthreads();
-    GRU_MARK(s, 3);
   }
 
   for (int i = tid; i < n_pairs; i += blockDim.x) {
@@ -425,44 +419,39 @@ long k_chunk_of(long K, int splits) {
 
 }  // namespace
 
-// The chain's launch plan for D directions of B rows and H units, in
-// clusters of `cluster` blocks (8 or 4; 0: whichever plan costs less, 8 on
-// a tie): fills plan with {groups, U, per_chain, ns, threads, smem bytes,
-// blocks, RC, cluster}. Least work per block first, then fewest chunks per
-// step, then fewest rows to stage. Returns 0, or an
-// error if no plan fits the card.
-extern "C" int s2i_gru_bwd_plan(int D, int B, int H, int cluster, int* plan) {
-  if (D <= 0 || B <= 0 || H <= 0 || H % 4 || (cluster && cluster != 4 && cluster != 8)) return cudaErrorInvalidValue;
+// The chain's launch plan for D directions of B rows and H units: fills
+// plan with {groups, U, per_chain, ns, threads, smem bytes, blocks, RC}.
+// Least work per block first, then fewest chunks per step, then fewest rows
+// to stage. Returns 0, or an error if no plan fits the card.
+extern "C" int s2i_gru_bwd_plan(int D, int B, int H, int* plan) {
+  if (D <= 0 || B <= 0 || H <= 0 || H % 4) return cudaErrorInvalidValue;
   const int n_sm = device_attr(cudaDevAttrMultiProcessorCount);
   const size_t smem_max = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
   const int H3 = 3 * H;
   long best = -1;
-  for (const int C : {8, 4}) {
-    if (cluster && cluster != C) continue;
-    for (int groups = 1; groups <= B; ++groups) {
-      const int R = (B + groups - 1) / groups;
-      if (groups > 1 && (B + R - 1) / R < groups) continue;  // same R as fewer groups
-      for (int U = 4; U <= (H + 3) / 4 * 4; U += 4) {
-        const int per_chain = ((H + U - 1) / U + C - 1) / C * C;
-        const int blocks = D * groups * per_chain;
-        if (blocks > n_sm) continue;
-        const int R4 = (R + 3) & ~3;
-        const int ns = slices(H3), threads = (U / 4 * ns + 31) / 32 * 32;
-        if (threads > kMaxThreads) break;  // larger U only needs more threads
-        if (R * U > kPairs * threads) continue;
-        int RC = 0;
-        for (int rc = R4; rc >= 4 && !RC; rc -= 4)
-          if (chain_layout(H, R, U, rc).total <= smem_max) RC = rc;
-        if (!RC) continue;
-        const long cost = ((((long)R4 * U * 256 + (R4 + RC - 1) / RC) * 4096 + R)) * 2 + (C == 4);
-        if (best >= 0 && cost >= best) break;
-        const size_t smem = one_block_per_sm(chain_layout(H, R, U, RC).total);
-        if ((long)max_clusters(gru_bwd_chain_kernel, C, threads, smem) * C < blocks) continue;
-        best = cost;
-        const int p[9] = {groups, U, per_chain, ns, threads, (int)smem, blocks, RC, C};
-        for (int i = 0; i < 9; ++i) plan[i] = p[i];
-        break;
-      }
+  for (int groups = 1; groups <= B; ++groups) {
+    const int R = (B + groups - 1) / groups;
+    if (groups > 1 && (B + R - 1) / R < groups) continue;  // same R as fewer groups
+    for (int U = 4; U <= (H + 3) / 4 * 4; U += 4) {
+      const int per_chain = ((H + U - 1) / U + kCluster - 1) / kCluster * kCluster;
+      const int blocks = D * groups * per_chain;
+      if (blocks > n_sm) continue;
+      const int R4 = (R + 3) & ~3;
+      const int ns = slices(H3), threads = (U / 4 * ns + 31) / 32 * 32;
+      if (threads > kMaxThreads) break;  // larger U only needs more threads
+      if (R * U > kPairs * threads) continue;
+      int RC = 0;
+      for (int rc = R4; rc >= 4 && !RC; rc -= 4)
+        if (chain_layout(H, R, U, rc).total <= smem_max) RC = rc;
+      if (!RC) continue;
+      const long cost = ((long)R4 * U * 256 + (R4 + RC - 1) / RC) * 4096 + R;
+      if (best >= 0 && cost >= best) break;
+      const size_t smem = one_block_per_sm(chain_layout(H, R, U, RC).total);
+      if ((long)max_clusters(gru_bwd_chain_kernel, threads, smem) * kCluster < blocks) continue;
+      best = cost;
+      const int p[8] = {groups, U, per_chain, ns, threads, (int)smem, blocks, RC};
+      for (int i = 0; i < 8; ++i) plan[i] = p[i];
+      break;
     }
   }
   return best >= 0 ? 0 : cudaErrorInvalidValue;
@@ -508,8 +497,8 @@ extern "C" int s2i_gru_bwd(const float* xw, const float* wh, const float* bh, co
   // 2. the reverse chains of every direction and row group
   const int groups = plan[0];
   const ChainArgs chain{xw, wh, mask, h0, ys, dys, dxw, dhg, dh0, count, T, B, H, (B + groups - 1) / groups,
-                        groups, plan[1], plan[2], plan[3], plan[7], plan[8]};
-  err = launch_chains(gru_bwd_chain_kernel, plan[6], plan[8], plan[4], (size_t)plan[5], stream, chain);
+                        groups, plan[1], plan[2], plan[3], plan[7]};
+  err = launch_chains(gru_bwd_chain_kernel, plan[6], plan[4], (size_t)plan[5], stream, chain);
   if (err != cudaSuccess) return err;
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   mark(2);
@@ -532,12 +521,6 @@ extern "C" int s2i_gru_bwd(const float* xw, const float* wh, const float* bh, co
   mark(3);
   return cudaSuccess;
 }
-
-#ifdef GRU_PROFILE
-extern "C" int s2i_gru_prof(long long* out) {
-  return cudaMemcpyFromSymbol(out, gru_prof, sizeof(gru_prof));
-}
-#endif
 
 extern "C" const char* s2i_gru_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -6,10 +6,7 @@
 // A chain is one (direction, row group) pair of a layer: R batch rows walked
 // over T steps by the blocks that own the chain's hidden units. The chains of
 // a launch are independent. A chain's blocks are grouped into thread block
-// clusters of C blocks (8, the portable size, or 4: the launch plan takes
-// whichever leaves less work per block; at H=512 with both directions that
-// is 4, because the card keeps more 4-block clusters resident at one block
-// per SM). Each step:
+// clusters of kCluster blocks. Each step:
 //   1. every block writes its share of the step's result (ys[t] in the
 //      forward, dhg[t] in the backward) with ordinary stores, then every
 //      thread issues `fence.proxy.async`, so that the bulk copies of step 3
@@ -20,15 +17,12 @@
 //      arrived (chain_barrier). One atomic per block measured faster than a
 //      cluster barrier followed by one atomic per cluster;
 //   3. each block issues `cp.async.bulk ... .multicast::cluster` copies of
-//      every C-th row of the step's rows, into the same place in the shared
+//      every kCluster-th row of the step's rows, into the same place in the shared
 //      memory of every block of its cluster: the cluster reads each row from
 //      L2 once, not once per block. Each block's `mbarrier` expects the bytes
 //      of all rows (`expect_tx`) and completes when they have landed; its
 //      phase parity flips once per use.
 // A spin that lasts longer than kSpinLimit clocks traps instead of hanging.
-// Built with -DGRU_PROFILE, block 0 records its clock at the phase
-// boundaries of steps 0..63 (GRU_MARK), for `python -m s2i_tpu_torch.gru_ab
-// --profile`.
 
 #pragma once
 
@@ -43,19 +37,12 @@ namespace gru {
 // ~8 s at 1.98 GHz: a wait that lasts longer traps instead of hanging.
 constexpr long long kSpinLimit = 1LL << 34;
 
-#ifdef GRU_PROFILE
-constexpr int kProfSteps = 64;
-constexpr int kProfMarks = 12;
-__device__ long long gru_prof[kProfSteps * kProfMarks];
-#define GRU_MARK(s, i)                                                      \
-  do {                                                                      \
-    if (blockIdx.x == 0 && threadIdx.x == 0 && (s) < kProfSteps) gru_prof[(s) * kProfMarks + (i)] = clock64(); \
-  } while (0)
-#else
-#define GRU_MARK(s, i) \
-  do {                 \
-  } while (0)
-#endif
+// Blocks per cluster. 4, not the portable 8: the card keeps more 4-block
+// clusters resident at one block per SM, so a chain pads fewer blocks and
+// each block owns fewer units; measured on an H100, 4 was as fast or faster
+// than 8 for both kernels at every batch (8 was 1.4-1.5x slower at B=64;
+// PERF.md §6).
+constexpr int kCluster = 4;
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -125,9 +112,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
 // memory to `dst` in every block of the cluster, completing on each block's
 // `bar` at the same offset.
-__device__ __forceinline__ void bulk_multicast(void* dst, const void* src, uint32_t bytes,
-                                               uint64_t* bar, int cluster) {
-  const uint16_t all = (1u << cluster) - 1;
+__device__ __forceinline__ void bulk_multicast(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  const uint16_t all = (1u << kCluster) - 1;
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
       " [%0], [%1], %2, [%3], %4;" ::"r"(smem_u32(dst)),
@@ -136,15 +122,13 @@ __device__ __forceinline__ void bulk_multicast(void* dst, const void* src, uint3
 }
 
 // Rows [0, rows) of `src` (row stride `ld` floats, `width` floats each) into
-// `dst` (row stride `stride`) of every block of the cluster of `cluster`
-// blocks: this block issues rows rank, rank + cluster, ...; `bar` expects
-// all rows. One thread.
+// `dst` (row stride `stride`) of every block of the cluster: this block
+// issues rows rank, rank + kCluster, ...; `bar` expects all rows. One thread.
 __device__ __forceinline__ void stage_rows(float* dst, int stride, const float* src, long ld,
-                                           int rows, int width, uint64_t* bar, int cluster) {
+                                           int rows, int width, uint64_t* bar) {
   const uint32_t bytes = static_cast<uint32_t>(width) * sizeof(float);
   mbar_expect(bar, bytes * rows);
-  for (int r = cluster_rank(); r < rows; r += cluster)
-    bulk_multicast(dst + r * stride, src + r * ld, bytes, bar, cluster);
+  for (int r = cluster_rank(); r < rows; r += kCluster) bulk_multicast(dst + r * stride, src + r * ld, bytes, bar);
 }
 
 // The step barrier of one chain. Call with every thread of the block: each
@@ -152,13 +136,11 @@ __device__ __forceinline__ void stage_rows(float* dst, int stride, const float* 
 // per block arrives with a release, and one per block spins with an acquire
 // until the chain's counter shows every block. The counter only grows, so
 // the k-th call waits for k * blocks arrivals and nobody resets it.
-__device__ __forceinline__ void chain_barrier(unsigned int* count, unsigned int target, int s) {
+__device__ __forceinline__ void chain_barrier(unsigned int* count, unsigned int target) {
   fence_proxy_async();
   __syncthreads();
-  GRU_MARK(s, 4);
   if (threadIdx.x == 0) {
     asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(count) : "memory");
-    GRU_MARK(s, 5);
     const long long t0 = clock64();
     for (;;) {
       unsigned int v;
@@ -167,7 +149,6 @@ __device__ __forceinline__ void chain_barrier(unsigned int* count, unsigned int 
       if (clock64() - t0 > kSpinLimit) __trap();
     }
     fence_proxy_async();  // the other blocks' writes, for this block's bulk copies
-    GRU_MARK(s, 6);
   }
 }
 
@@ -277,17 +258,17 @@ inline size_t one_block_per_sm(size_t smem) {
   return smem > half ? smem : half;
 }
 
-// A cooperative launch of `blocks` blocks in clusters of `cluster`, or an
-// error before launching if they cannot all be resident at once (a chain's
-// blocks wait for each other, so a block that never starts would hang them).
+// A cooperative launch of `blocks` blocks in clusters, or an error before
+// launching if they cannot all be resident at once (a chain's blocks wait
+// for each other, so a block that never starts would hang them).
 template <typename Kernel, typename Args>
-cudaError_t launch_chains(Kernel kernel, int blocks, int cluster, int threads, size_t smem,
-                          cudaStream_t stream, const Args& args) {
+cudaError_t launch_chains(Kernel kernel, int blocks, int threads, size_t smem, cudaStream_t stream,
+                          const Args& args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attrs[2];
   attrs[0].id = cudaLaunchAttributeClusterDimension;
-  attrs[0].val.clusterDim.x = cluster;
+  attrs[0].val.clusterDim.x = kCluster;
   attrs[0].val.clusterDim.y = 1;
   attrs[0].val.clusterDim.z = 1;
   attrs[1].id = cudaLaunchAttributeCooperative;
@@ -302,23 +283,23 @@ cudaError_t launch_chains(Kernel kernel, int blocks, int cluster, int threads, s
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   if (err != cudaSuccess) return err;
-  if ((long)clusters * cluster < blocks) return cudaErrorCooperativeLaunchTooLarge;
+  if ((long)clusters * kCluster < blocks) return cudaErrorCooperativeLaunchTooLarge;
   return cudaLaunchKernelEx(&cfg, kernel, args);
 }
 
-// Most clusters of `cluster` blocks of `threads` threads and `smem` bytes
-// that can be resident at once (0 if the block does not fit).
+// Most clusters of blocks of `threads` threads and `smem` bytes that can be
+// resident at once (0 if the block does not fit).
 template <typename Kernel>
-int max_clusters(Kernel kernel, int cluster, int threads, size_t smem) {
+int max_clusters(Kernel kernel, int threads, size_t smem) {
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) != cudaSuccess)
     return 0;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.x = kCluster;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster);
+  cfg.gridDim = dim3(kCluster);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.attrs = &attr;

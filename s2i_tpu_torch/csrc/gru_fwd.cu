@@ -14,7 +14,7 @@
 // What bounds it on this card: neither bytes nor operations but the chain
 // of T dependent steps. A step at H=512, B=64, D=2 is 2*2*64*512*1536 =
 // 201 MFLOP, 3 us of the card's fp32 peak; at B=8 it is 0.4 us. Measured
-// on an H100 (700 W) with `python -m s2i_tpu_torch.gru_ab --profile`, a
+// on an H100 (700 W) by clock64 marks at a step's phase boundaries (PERF.md), a
 // step at B=64 takes ~24,000 SM clocks, ~62% of them in the product; at
 // B=8 it takes ~9,400, ~45% of them in the step barrier (release, spin on
 // the other blocks, and the fence before it) and ~26% in the product.
@@ -63,9 +63,8 @@ struct FwdArgs {
   int R;          // rows per group
   int groups;     // row groups per direction
   int U;          // hidden units per block, a multiple of 4
-  int per_chain;  // blocks per chain, a multiple of the cluster size
+  int per_chain;  // blocks per chain, a multiple of kCluster
   int ns;         // slices of the H sum (a multiple of 16)
-  int cluster;    // blocks per cluster
 };
 
 struct FwdLayout {
@@ -149,22 +148,19 @@ __global__ void __launch_bounds__(kMaxThreads, 1) gru_fwd_kernel(const FwdArgs a
   // every block's mbarrier is initialized, and its shared memory zeroed,
   // before any copy into it
   cluster_sync_for_copies();
-  if (tid == 0) stage_rows(h_s, S, a.h0 + ((long)d * B + b0) * H, H, rows, H, bar, a.cluster);
+  if (tid == 0) stage_rows(h_s, S, a.h0 + ((long)d * B + b0) * H, H, rows, H, bar);
 
   unsigned int* count = a.count + chain;
 
   for (int s = 0; s < T; ++s) {
     const int t = time_of(s);
     fetch(s + 1);
-    GRU_MARK(s, 0);
     mbar_wait(bar, s & 1);
-    GRU_MARK(s, 1);
 
     // 2. h_{t-1} @ W_slice, W from registers
     product_rows(h_s, S, rows, w, lane, ns, J / 4 * ns, red_s, R4, J, 0);
     cp_async_wait<1>();  // this step's xw and mask (the next step's may still fly)
     __syncthreads();
-    GRU_MARK(s, 2);
 
     // 3. gates of the block's (row, unit) pairs, partial sums added in order
     const float* xs = x_s + (s & 1) * a.R * J;
@@ -188,49 +184,43 @@ __global__ void __launch_bounds__(kMaxThreads, 1) gru_fwd_kernel(const FwdArgs a
     }
 
     // 4. the chain's step barrier, then the copy of ys[t] for the next step
-    GRU_MARK(s, 3);
     if (s + 1 < T) {
-      chain_barrier(count, (s + 1) * a.per_chain, s);
-      if (tid == 0) stage_rows(h_s, S, ys + (long)t * TBH + (long)b0 * H, H, rows, H, bar, a.cluster);
-      GRU_MARK(s, 7);
+      chain_barrier(count, (s + 1) * a.per_chain);
+      if (tid == 0) stage_rows(h_s, S, ys + (long)t * TBH + (long)b0 * H, H, rows, H, bar);
     }
   }
 }
 
 }  // namespace
 
-// The launch plan for D directions of B rows and H units, in clusters of
-// `cluster` blocks (8 or 4; 0: whichever plan costs less, 8 on a tie):
-// fills plan with {groups, U, per_chain, ns, threads, smem bytes, blocks,
-// cluster}. Least work per block first, then fewest rows to stage, then
-// fewest blocks. Returns 0, or an error if no plan fits the card.
-extern "C" int s2i_gru_fwd_plan(int D, int B, int H, int cluster, int* plan) {
-  if (D <= 0 || B <= 0 || H <= 0 || H % 4 || (cluster && cluster != 4 && cluster != 8)) return cudaErrorInvalidValue;
+// The launch plan for D directions of B rows and H units: fills plan with
+// {groups, U, per_chain, ns, threads, smem bytes, blocks}. Least work per
+// block first, then fewest rows to stage, then fewest blocks. Returns 0,
+// or an error if no plan fits the card.
+extern "C" int s2i_gru_fwd_plan(int D, int B, int H, int* plan) {
+  if (D <= 0 || B <= 0 || H <= 0 || H % 4) return cudaErrorInvalidValue;
   const int n_sm = device_attr(cudaDevAttrMultiProcessorCount);
   const size_t smem_max = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
   long best = -1;
-  for (const int C : {8, 4}) {
-    if (cluster && cluster != C) continue;
-    for (int groups = 1; groups <= B; ++groups) {
-      const int R = (B + groups - 1) / groups;
-      if (groups > 1 && (B + R - 1) / R < groups) continue;  // same R as fewer groups
-      for (int U = 4; U <= (H + 3) / 4 * 4; U += 4) {
-        const int per_chain = ((H + U - 1) / U + C - 1) / C * C;
-        const int blocks = D * groups * per_chain;
-        if (blocks > n_sm) continue;
-        const int R4 = (R + 3) & ~3, J = 3 * U;
-        const int ns = slices(H), threads = (J / 4 * ns + 31) / 32 * 32;
-        if (threads > kMaxThreads) break;  // larger U only needs more threads
-        if (fwd_layout(H, R, U).total > smem_max) continue;
-        const size_t smem = one_block_per_sm(fwd_layout(H, R, U).total);
-        const long cost = (((long)R4 * J + R) * 1024 + blocks) * 2 + (C == 4);
-        if (best >= 0 && cost >= best) break;  // larger U only costs more
-        if ((long)max_clusters(gru_fwd_kernel, C, threads, smem) * C < blocks) continue;
-        best = cost;
-        const int p[8] = {groups, U, per_chain, ns, threads, (int)smem, blocks, C};
-        for (int i = 0; i < 8; ++i) plan[i] = p[i];
-        break;  // the smallest U that fits is this group count's best
-      }
+  for (int groups = 1; groups <= B; ++groups) {
+    const int R = (B + groups - 1) / groups;
+    if (groups > 1 && (B + R - 1) / R < groups) continue;  // same R as fewer groups
+    for (int U = 4; U <= (H + 3) / 4 * 4; U += 4) {
+      const int per_chain = ((H + U - 1) / U + kCluster - 1) / kCluster * kCluster;
+      const int blocks = D * groups * per_chain;
+      if (blocks > n_sm) continue;
+      const int R4 = (R + 3) & ~3, J = 3 * U;
+      const int ns = slices(H), threads = (J / 4 * ns + 31) / 32 * 32;
+      if (threads > kMaxThreads) break;  // larger U only needs more threads
+      if (fwd_layout(H, R, U).total > smem_max) continue;
+      const size_t smem = one_block_per_sm(fwd_layout(H, R, U).total);
+      const long cost = ((long)R4 * J + R) * 1024 + blocks;
+      if (best >= 0 && cost >= best) break;  // larger U only costs more
+      if ((long)max_clusters(gru_fwd_kernel, threads, smem) * kCluster < blocks) continue;
+      best = cost;
+      const int p[7] = {groups, U, per_chain, ns, threads, (int)smem, blocks};
+      for (int i = 0; i < 7; ++i) plan[i] = p[i];
+      break;  // the smallest U that fits is this group count's best
     }
   }
   return best >= 0 ? 0 : cudaErrorInvalidValue;
@@ -243,18 +233,12 @@ extern "C" int s2i_gru_fwd(const float* xw, const float* wh, const float* bh, co
   if (D <= 0 || T <= 0 || B <= 0 || H <= 0 || H % 4) return cudaErrorInvalidValue;
   const int groups = plan[0];
   const FwdArgs args{xw, wh, bh, mask, h0, ys, count, T, B, H, (B + groups - 1) / groups, groups,
-                     plan[1], plan[2], plan[3], plan[7]};
-  cudaError_t err = launch_chains(gru_fwd_kernel, plan[6], plan[7], plan[4], (size_t)plan[5],
-                                  static_cast<cudaStream_t>(stream), args);
+                     plan[1], plan[2], plan[3]};
+  cudaError_t err =
+      launch_chains(gru_fwd_kernel, plan[6], plan[4], (size_t)plan[5], static_cast<cudaStream_t>(stream), args);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
-
-#ifdef GRU_PROFILE
-extern "C" int s2i_gru_prof(long long* out) {
-  return cudaMemcpyFromSymbol(out, gru_prof, sizeof(gru_prof));
-}
-#endif
 
 extern "C" const char* s2i_gru_fwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -34,7 +34,7 @@ import torch
 
 from s2i_tpu_torch.ops import build
 
-_PLAN_INTS = 9
+_PLAN_INTS = 8
 
 
 def _gates(xw_t, hw):
@@ -111,7 +111,7 @@ def gru_scan_bwd_plain(xw, w_h, b_h, mask, h0, ys, dys):
 def _fwd_lib() -> ctypes.CDLL:
     lib = build.load("gru_fwd")
     if lib.s2i_gru_fwd.argtypes is None:
-        lib.s2i_gru_fwd_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.s2i_gru_fwd_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.s2i_gru_fwd_plan.restype = ctypes.c_int
         lib.s2i_gru_fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
         lib.s2i_gru_fwd.restype = ctypes.c_int
@@ -123,7 +123,7 @@ def _fwd_lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("gru_bwd")
     if lib.s2i_gru_bwd.argtypes is None:
-        lib.s2i_gru_bwd_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.s2i_gru_bwd_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.s2i_gru_bwd_plan.restype = ctypes.c_int
         lib.s2i_gru_bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
         lib.s2i_gru_bwd.restype = ctypes.c_int
@@ -135,18 +135,16 @@ def _bwd_lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(kind: str, d: int, b: int, h: int, device: int, cluster: int = 0):
+def _plan(kind: str, d: int, b: int, h: int, device: int):
     """(rows per launch, the kernel's launch plan) for ``kind`` ("fwd" or
-    "bwd") in clusters of ``cluster`` blocks (0: the plan's choice, as the
-    wrappers use it): all ``b`` rows in one launch if a plan fits the card,
-    else the largest row count that does (the rows are independent
-    chains)."""
+    "bwd"): all ``b`` rows in one launch if a plan fits the card, else the
+    largest row count that does (the rows are independent chains)."""
     lib = _fwd_lib() if kind == "fwd" else _bwd_lib()
     plan_fn = lib.s2i_gru_fwd_plan if kind == "fwd" else lib.s2i_gru_bwd_plan
     plan = (ctypes.c_int * _PLAN_INTS)()
     with torch.cuda.device(device):
         rows = b
-        while plan_fn(d, rows, h, cluster, plan) != 0:
+        while plan_fn(d, rows, h, plan) != 0:
             if rows == 1:
                 raise ValueError(f"the GRU {kind} kernel has no launch plan for D={d}, H={h} on this card")
             rows = (rows + 1) // 2

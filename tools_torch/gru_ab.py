@@ -1,42 +1,39 @@
-"""Same-call A/B of the GRU kernels on one card: the current K2/K3
-(``ops/gru_kernel.py``, both directions of a layer in one launch) against an
-earlier version of ``gru_fwd.cu``/``gru_bwd.cu`` with the one-direction C
-interface (one launch per direction), and against ``torch.nn.GRU``:
+"""Same-call A/B of the GRU kernels on one card: the port's K2/K3
+(``s2i_tpu_torch/ops/gru_kernel.py``, both directions of a layer in one
+launch) against the one-direction version of ``gru_fwd.cu``/``gru_bwd.cu``
+that came before them (one launch per direction; its C interface is the one
+of commit e0cfc07: ``s2i_gru_fwd_max_batch``, a 12-argument
+``s2i_gru_fwd``, a 3-int ``s2i_gru_bwd_workspace``), and against
+``torch.nn.GRU(bidirectional=True)``. Run from the repo root on a card:
 
-    python -m s2i_tpu_torch.gru_ab --old-csrc DIR [--batches 8,24,64]
+    python3 tools_torch/gru_ab.py --old-csrc DIR [--batches 8,24,64]
 
-DIR holds the earlier ``gru_fwd.cu`` and ``gru_bwd.cu`` (for example from
-``git archive <commit> s2i_tpu_torch/csrc``); they are built with the
-port's nvcc flags into a temporary directory. Every case runs the versions
-in turns (earlier, current, current, earlier) on the same seeded inputs at
-T=128, H=512, D=2, and checks that they agree; each time is a CUDA-event
-mean over 20 calls. The earlier version is timed on its kernels alone: the
-flips of the reverse direction's inputs that its caller made are left out.
-The current version is also timed with each cluster size forced (8, 4).
-Prints one line per case and a JSON line of every number.
-
-    python -m s2i_tpu_torch.gru_ab --profile [--batches 8,64]
-
-instead rebuilds the current kernels with -DGRU_PROFILE and prints where a
-step's time goes: the mean SM clock cycles of each phase of steps 8..59 in
-block 0 of each kernel (its thread 0's clock64 at the phase boundaries).
+DIR holds the earlier ``gru_fwd.cu`` and ``gru_bwd.cu`` (``git archive
+e0cfc07 s2i_tpu_torch/csrc``); they are built with the port's nvcc flags
+into a temporary directory. Every case runs the versions in turns (earlier,
+current, current, earlier) on the same seeded inputs at T=128, H=512, D=2,
+and checks that they agree; each time is a CUDA-event mean over 20 calls.
+The earlier version is timed on its kernels alone: the flips of the
+reverse direction's inputs that its caller made are left out. Prints one
+line per case and a JSON line of every number.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import ctypes
 import json
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 
-import numpy as np
 import torch
 
-from s2i_tpu_torch.device import resolve_device
-from s2i_tpu_torch.ops import build, gru_kernel
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from s2i_tpu_torch.device import resolve_device  # noqa: E402
+from s2i_tpu_torch.ops import build, gru_kernel  # noqa: E402
 
 T, H, C_IN = 128, 512, 256
 
@@ -97,17 +94,6 @@ def old_bwd(lib, xw, w_h, b_h, mask, h0, ys, dys, out):
         raise RuntimeError(f"earlier gru_bwd: error {err}")
 
 
-@contextlib.contextmanager
-def forced_cluster(cluster: int):
-    """The wrappers' launch plans in clusters of ``cluster`` blocks, for the block."""
-    plan = gru_kernel._plan
-    gru_kernel._plan = lambda kind, d, b, h, device: plan(kind, d, b, h, device, cluster)
-    try:
-        yield
-    finally:
-        gru_kernel._plan = plan
-
-
 def inputs(b: int, seed: int = 0) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rnd = lambda *s, scale=1.0: scale * torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
@@ -157,12 +143,6 @@ def case(libs, b: int) -> dict:
         times = [time_ms(old), time_ms(cur), time_ms(cur), time_ms(old)]
         rec[f"{kind}_earlier_ms"] = [times[0], times[3]]
         rec[f"{kind}_ms"] = [times[1], times[2]]
-        for cluster in (8, 4):
-            with forced_cluster(cluster):
-                try:
-                    rec[f"{kind}_cluster{cluster}_ms"] = time_ms(cur)
-                except ValueError as e:
-                    rec[f"{kind}_cluster{cluster}_ms"] = f"no plan: {e}"
         rec[f"{kind}_plan"] = list(gru_kernel._plan(kind, 2, b, H, 0)[1])
 
     parts = []
@@ -180,58 +160,16 @@ def case(libs, b: int) -> dict:
     return rec
 
 
-# phase boundaries (GRU_MARK indices) in the order a step passes them, and
-# the phases between them
-PHASES = {
-    "fwd": ([0, 1, 2, 3, 4, 5, 6, 7], ["wait for h", "product", "gates", "fence+sync", "arrive", "spin",
-                                       "issue copy", "next fetch"]),
-    "bwd": ([0, 1, 4, 5, 6, 7, 8, 2, 3], ["gates", "fence+sync", "arrive", "spin", "issue copy+fetch",
-                                          "wait for dhg", "product", "dh sum", "loop"]),
-}
-
-
-def profile(batches) -> None:
-    build.NVCC_FLAGS = build.NVCC_FLAGS + ("-DGRU_PROFILE",)
-    for b in batches:
-        g = inputs(b)
-        args = {k: g[k] for k in ("xw", "w_h", "b_h", "mask", "h0")}
-        ys = gru_kernel.gru_scan(**args)
-        for kind in ("fwd", "bwd"):
-            lib = gru_kernel._fwd_lib() if kind == "fwd" else gru_kernel._bwd_lib()
-            run = (lambda: gru_kernel.gru_scan(**args)) if kind == "fwd" else \
-                (lambda: gru_kernel.gru_scan_bwd(**args, ys=ys, dys=g["dys"]))  # noqa: E731
-            ms = time_ms(run)
-            run()
-            torch.cuda.synchronize()
-            buf = (ctypes.c_longlong * (64 * 12))()
-            lib.s2i_gru_prof.argtypes = [ctypes.c_void_p]
-            if lib.s2i_gru_prof(buf):
-                raise RuntimeError("could not read the profile")
-            marks = np.array(buf, dtype=np.float64).reshape(64, 12)[8:60]
-            order, names = PHASES[kind]
-            seg = list(np.diff(marks[:, order], axis=1).mean(0))
-            step = float(np.diff(marks[:, 0]).mean())
-            seg.append(step - sum(seg))
-            print(f"[gru_ab] profile {kind} D=2 B={b}: {ms:.4f} ms, {step:.0f} cycles per step: "
-                  + ", ".join(f"{n} {v:.0f}" for n, v in zip(names, seg)), flush=True)
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old-csrc", type=Path)
+    ap.add_argument("--old-csrc", type=Path, required=True)
     ap.add_argument("--batches", default="8,24,64")
-    ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
     resolve_device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"[gru_ab] {smi}", flush=True)
     batches = [int(v) for v in args.batches.split(",")]
-    if args.profile:
-        profile(batches)
-        return
-    if args.old_csrc is None:
-        ap.error("--old-csrc is needed unless --profile")
     build.build_all(["gru_fwd", "gru_bwd"])
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_old(args.old_csrc, Path(tmp))
