@@ -10,7 +10,12 @@ Phases, each of which passes or raises (nothing is caught):
                the shapes the serving path gives it (plus a second log-mel
                geometry), at the encoder training shapes (batch 64), at the
                joint finetune's (batch 24) and, for the framed log-mel K4, at
-               the frontend A/B shape, with times from CUDA events. The GRU
+               the frontend A/B shape, with times from CUDA events. The
+               log-mel kernels print the branch they took (FFT or dense
+               DFT), their and the plain version's distance from the float64
+               arithmetic (the FFT branch may be no further from it), their
+               time warm and with L2 flushed, the dense DFT branch's time on
+               the same input, and the cuFFT route as a yardstick. The GRU
                kernels run as the paths call them, both directions of the
                layer in one launch (plus one direction alone at batch 64),
                beside cuDNN's GRU on the same weights; the backward runs
@@ -61,6 +66,7 @@ import numpy as np
 import torch
 
 from s2i_tpu_torch import cli, config
+from s2i_tpu_torch.audio import filters
 from s2i_tpu_torch.audio.frontend import (
     FrontendParams,
     center_pad,
@@ -80,8 +86,9 @@ from s2i_tpu_torch.train import gan
 from s2i_tpu_torch.train.encoder import encoder_train_step, init_encoder_state
 from s2i_tpu_torch.train.losses import distillation_loss
 
-# NVIDIA H100 SXM data sheet (700 W): fp32 without tensor cores, HBM3.
+# NVIDIA H100 SXM data sheet (700 W): fp32 and fp64 without tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_FP64_FLOPS = 34e12
 PEAK_BYTES_PER_S = 3.35e12
 SEED = 0
 BATCH = 8  # the server's batch, and the kernels' batch at the serving shapes
@@ -94,6 +101,7 @@ GAN_STEPS = 3  # steps of each counted GAN run
 GAN_STEP_RUNS = 10  # timed GAN steps, after 2 of warm-up
 CHECK_BATCH = 4  # batch of the first GAN step held card vs CPU
 AB_SHAPE = (8, 64000)  # scripts/perf_cert.py::cert_mel's wav batch
+FLUSH_BYTES = 256 << 20  # written between launches of a cold timing: five times the H100's 50 MB L2
 
 # kernel name → (wrapper whose .launches counts it, source, the TPU kernel it replaces)
 KERNELS = {
@@ -157,12 +165,16 @@ def read_counts() -> dict[str, int]:
     return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
+def time_ms(fn, reps: int = 20, warmup: int = 3, queued: bool = False) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls. queued: a
+    ~25 ms device sleep first, so that the host has queued every call before
+    the first starts (for a call shorter than its own host overhead)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -171,9 +183,9 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     """The least time the card could take: (ms, what bounds it)."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -211,51 +223,153 @@ def phase_build() -> None:
                 log(f"[build] {name}: {line.strip()}")
 
 
-def check_logmel(p: FrontendParams, wavs: np.ndarray) -> tuple[float, float, float, int]:
-    """Kernel vs plain on the card: (max_abs_err, kernel_ms, plain_ms, frames)."""
+def time_cold_ms(fn, reps: int = 10) -> float:
+    """Mean device time of ``fn`` with the L2 cache flushed before each call
+    (a FLUSH_BYTES write outside the timed events)."""
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    fn()
+    events = []
+    for _ in range(reps):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def mel_fft_flops(p: FrontendParams, frames: int) -> float:
+    """Operations of the FFT branch on ``frames`` frames: the window (win
+    products) + the n_fft/2 = M-point complex FFT (5·M·log2 M) + the split
+    step and power (17 per bin, M + 1 bins: two complex products, their sum,
+    |X|²) + the sparse mel projection (2 per non-zero weight) + the log (1
+    per mel)."""
+    m = p.n_fft // 2
+    nnz = int(np.count_nonzero(p.mel_fb))
+    return frames * (p.win_length + 5.0 * m * np.log2(m) + 17.0 * (m + 1) + 2.0 * nnz + p.n_mels)
+
+
+def mel_dft_flops(p: FrontendParams, frames: int) -> float:
+    """Operations of the dense windowed DFT + dense mel projection."""
+    return frames * (2.0 * 2 * p.win_length * p.n_bins + 2.0 * p.n_bins * p.n_mels)
+
+
+def mel_bounds(p: FrontendParams, frames: int, in_bytes: float, out_bytes: float) -> dict:
+    """bound_ms / bound_by of the branch the kernels take for ``p``, and the
+    dense DFT's bound beside it (each with its own constant tables read once).
+    The FFT branch computes in float64, the DFT branch in float32."""
+    fft_table = mel_kernel.fft_table(p).nbytes
+    dft_tables = 4.0 * (2 * p.win_length * p.n_bins + p.n_bins * p.n_mels)
+    fft_ms, fft_by = bound(mel_fft_flops(p, frames), in_bytes + out_bytes + fft_table, PEAK_FP64_FLOPS)
+    dft_ms, dft_by = bound(mel_dft_flops(p, frames), in_bytes + out_bytes + dft_tables)
+    if mel_kernel.kernel_branch(p) == "fft":
+        return dict(bound_ms=fft_ms, bound_by=fft_by, dft_bound_ms=dft_ms)
+    return dict(bound_ms=dft_ms, bound_by=dft_by, dft_bound_ms=dft_ms)
+
+
+def logmel_f64(frames: torch.Tensor, p: FrontendParams) -> torch.Tensor:
+    """The plain arithmetic in float64 on the card, from the float64 tables
+    (window-folded DFT, filterbank) that the float32 ones are cast from:
+    frames [..., win] → log-mel [..., n_mels]."""
+    cos, sin = (torch.from_numpy(t).cuda() for t in filters.windowed_dft_matrices(p.win_length, p.n_fft))
+    fb = torch.from_numpy(filters.mel_filterbank(p.sample_rate, p.n_fft, p.n_mels, p.fmin, p.fmax,
+                                                 htk=p.htk_mel, norm=p.mel_norm)).cuda()
+    x = frames.double()
+    return torch.log(((x @ cos) ** 2 + (x @ sin) ** 2) @ fb.T + p.log_offset)
+
+
+def cufft_route(frames: torch.Tensor, p: FrontendParams):
+    """A yardstick the port never calls: torch.fft.rfft (cuFFT) of the
+    windowed frames [..., win] zero-padded to n_fft, power, mel matmul, log."""
+    window = torch.from_numpy(filters.hann_window(p.win_length).astype(np.float32)).cuda()
+    fb_t = torch.as_tensor(p.mel_fb, device="cuda").T.contiguous()
+
+    def run() -> torch.Tensor:
+        spec = torch.fft.rfft(frames * window, n=p.n_fft)
+        return torch.log((spec.real ** 2 + spec.imag ** 2) @ fb_t + p.log_offset)
+    return run
+
+
+def mel_errors(got, plain, cufft, frames: torch.Tensor, p: FrontendParams, what: str) -> dict:
+    """Kernel vs plain (raises past TOL_MEL), and kernel, plain and the cuFFT
+    route against the float64 arithmetic (the first two held by
+    check_mel_precision once every row is printed)."""
+    err = (got - plain).abs().max().item()
+    if not err <= TOL_MEL:
+        raise AssertionError(f"{what} disagrees with its plain version: {err} > {TOL_MEL}")
+    want = logmel_f64(frames, p).view(got.shape)
+    f64 = lambda y: (y.double().view(got.shape) - want).abs().max().item()  # noqa: E731
+    return dict(max_abs_err=err, f64_err=f64(got), plain_f64_err=f64(plain), cufft_f64_err=f64(cufft))
+
+
+def check_mel_precision(rows: dict[str, dict]) -> None:
+    """The FFT branch, which rounds another way than the plain version's
+    float32 DFT, must be no further than it from the float64 arithmetic."""
+    worse = {label: (r["f64_err"], r["plain_f64_err"]) for label, r in rows.items()
+             if r["branch"] == "fft" and not r["f64_err"] <= r["plain_f64_err"]}
+    if worse:
+        raise AssertionError(f"log-mel kernels further from float64 than the plain version (kernel, plain): {worse}")
+
+
+def mel_times(kernel, plain, dft, cufft) -> dict:
+    """Device ms of a log-mel kernel warm and with L2 flushed, its plain
+    version, the dense DFT branch on the same input, and the cuFFT route."""
+    return dict(ms=time_ms(kernel, queued=True), ms_l2_flushed=time_cold_ms(kernel),
+                plain_ms=time_ms(plain, queued=True), dft_branch_ms=time_ms(dft, queued=True),
+                cufft_route_ms=time_ms(cufft, queued=True))
+
+
+def log_mel_row(name: str, label: str, shape: str, row: dict) -> None:
+    log(f"[kernels] {name} yardstick {label}: cuFFT route (torch.fft.rfft of the windowed frames, power, "
+        f"mel matmul, log; the port never calls it) {row['cufft_route_ms']:.4f} ms, vs float64 "
+        f"{row['cufft_f64_err']:.3g}")
+    log(f"[kernels] {name} {label} {shape}: branch {row['branch']} max_abs_err={row['max_abs_err']:.3g} "
+        f"(vs float64: kernel {row['f64_err']:.3g}, plain {row['plain_f64_err']:.3g}) kernel_ms={row['ms']:.4f} "
+        f"(L2 flushed {row['ms_l2_flushed']:.4f}; dense DFT branch {row['dft_branch_ms']:.4f}) "
+        f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; dense DFT "
+        f"{row['dft_bound_ms']:.4f}) library_ms=none")
+
+
+def kernel_logmel(p: FrontendParams, wavs: np.ndarray, label: str) -> dict:
+    """K1 on ``wavs`` against its plain version, float64, the dense DFT
+    branch and the cuFFT route."""
     x = center_pad(preemphasize(torch.from_numpy(wavs).cuda(), p.preemphasis), p)
     n = min(mel_kernel.num_frames(x.shape[1], p), p.max_frames)
     got = mel_kernel.logmel(x, p, n)
     torch.cuda.synchronize()
-    want = mel_kernel.logmel_plain(x, p, n)
-    err = (got - want).abs().max().item()
-    if not err <= TOL_MEL:
-        raise AssertionError(f"log-mel kernel disagrees with its plain version: {err} > {TOL_MEL}")
-    k_ms = time_ms(lambda: mel_kernel.logmel(x, p, n))
-    p_ms = time_ms(lambda: mel_kernel.logmel_plain(x, p, n))
-    return err, k_ms, p_ms, n
-
-
-def kernel_logmel(p: FrontendParams, wavs: np.ndarray, label: str) -> dict:
-    err, k_ms, p_ms, n = check_logmel(p, wavs)
+    frames = x.unfold(-1, p.win_length, p.hop_length)[:, :n]
+    route = cufft_route(frames, p)
+    row = dict(branch=mel_kernel.logmel.branch,
+               **mel_errors(got, mel_kernel.logmel_plain(x, p, n), route(), frames, p, f"K1 {label}"))
+    row.update(mel_times(lambda: mel_kernel.logmel(x, p, n), lambda: mel_kernel.logmel_plain(x, p, n),
+                         lambda: mel_kernel.launch_fused(x, p, n, "dft"), route))
     b = wavs.shape[0]
-    flops = 2.0 * 2 * b * n * p.win_length * p.n_bins + 2.0 * b * n * p.n_bins * p.n_mels
-    nbytes = 4.0 * (wavs.size + 2 * p.win_length * p.n_bins + p.n_bins * p.n_mels + b * n * p.n_mels)
-    b_ms, b_by = bound(flops, nbytes)
-    log(f"[kernels] mel_fused {label} B={b} wav={p.max_samples} frames={n}: max_abs_err={err:.3g} "
-        f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms=none")
-    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    covered = (n - 1) * p.hop_length + p.win_length  # the samples the frames read, per utterance
+    row.update(mel_bounds(p, b * n, 4.0 * b * covered, 4.0 * b * n * p.n_mels))
+    log_mel_row("mel_fused", label, f"B={b} wav={x.shape[1]} frames={n}", row)
+    return row
 
 
 def kernel_mel_framed(p: FrontendParams, wavs: np.ndarray, label: str) -> dict:
-    """K4 on the frame rows of ``wavs`` against its plain version."""
+    """K4 on the frame rows of ``wavs`` against its plain version, float64,
+    the dense DFT branch and the cuFFT route. The bound reads the win
+    samples of each row that count (the window is zero past them)."""
     x = center_pad(preemphasize(torch.from_numpy(wavs).cuda(), p.preemphasis), p)
     rows = mel_kernel.frame_rows(x, p, mel_kernel.num_frames(x.shape[1], p))
     got = mel_kernel.logmel_frames(rows, p)
     torch.cuda.synchronize()
-    err = (got - mel_kernel.logmel_framed_plain(rows, p)).abs().max().item()
-    if not err <= TOL_MEL:
-        raise AssertionError(f"framed log-mel kernel disagrees with its plain version: {err} > {TOL_MEL}")
-    k_ms = time_ms(lambda: mel_kernel.logmel_frames(rows, p))
-    p_ms = time_ms(lambda: mel_kernel.logmel_framed_plain(rows, p))
+    frames = rows[:, : p.win_length]
+    route = cufft_route(frames, p)
+    row = dict(branch=mel_kernel.logmel_frames.branch,
+               **mel_errors(got, mel_kernel.logmel_framed_plain(rows, p), route(), frames, p, f"K4 {label}"))
+    row.update(mel_times(lambda: mel_kernel.logmel_frames(rows, p), lambda: mel_kernel.logmel_framed_plain(rows, p),
+                         lambda: mel_kernel.launch_framed(rows, p, "dft"), route))
     r = rows.shape[0]
-    flops = 2.0 * 2 * r * p.win_length * p.n_bins + 2.0 * r * p.n_bins * p.n_mels
-    nbytes = 4.0 * (rows.numel() + 2 * p.win_length * p.n_bins + p.n_bins * p.n_mels + r * p.n_mels)
-    b_ms, b_by = bound(flops, nbytes)
-    log(f"[kernels] mel_framed {label} B={wavs.shape[0]} wav={wavs.shape[1]} rows={r}x{p.n_fft}: "
-        f"max_abs_err={err:.3g} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}; "
-        f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB) library_ms=none")
-    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    row.update(mel_bounds(p, r, 4.0 * r * p.win_length, 4.0 * r * p.n_mels))
+    log_mel_row("mel_framed", label, f"B={wavs.shape[0]} wav={wavs.shape[1]} rows={r}x{p.n_fft}", row)
+    return row
 
 
 def ab_wavs() -> np.ndarray:
@@ -401,10 +515,9 @@ def phase_kernels() -> dict:
 
     # a second geometry: n_fft/hop = 12.8, center padding, preemphasis, ragged
     p2 = FrontendParams(hop_length=40, center=True, preemphasis=0.97, max_frames=4096)
-    err2, k2, pl2, n2 = check_logmel(p2, tone_batch(64000, [64000, 30011, 5000, 401, 64000, 12345, 777, 50000], 2))
-    log(f"[kernels] mel_fused hop=40 center preemph B={BATCH} frames={n2}: max_abs_err={err2:.3g} "
-        f"kernel_ms={k2:.4f} plain_ms={pl2:.4f}")
-    mel["max_abs_err"] = max(mel["max_abs_err"], err2)
+    mel["hop40"] = kernel_logmel(p2, tone_batch(64000, [64000, 30011, 5000, 401, 64000, 12345, 777, 50000], 2),
+                                 "hop=40 center preemph")
+    mel["max_abs_err"] = max(mel["max_abs_err"], mel["hop40"]["max_abs_err"])
 
     # GRU at the encoder's shapes, both directions of the layer in one call:
     # T=1024/8=128 steps, B=8, H=512, input 256
@@ -442,6 +555,8 @@ def phase_kernels() -> dict:
     framed = kernel_mel_framed(FrontendParams(), ab_wavs(), "A/B")
     framed["serve"] = kernel_mel_framed(p, wavs, "birds serve")
     framed["max_abs_err"] = max(framed["max_abs_err"], framed["serve"]["max_abs_err"])
+    check_mel_precision({"K1 serve": mel, **{f"K1 {k}": mel[k] for k in ("hop40", "train", "joint")},
+                         "K4 A/B": framed, "K4 serve": framed["serve"]})
     return {"mel_fused": mel, "gru_fwd": gru, "gru_bwd": gru_bwd, "mel_framed": framed}
 
 

@@ -1,5 +1,5 @@
-// Fused log-mel frontend for Hopper (sm_90a): framing + windowed DFT power
-// + mel projection + log in one kernel.
+// Fused log-mel frontend for Hopper (sm_90a): framing + windowed spectrum
+// power + mel projection + log in one kernel.
 //
 // Replaces: the Pallas TPU kernel `_mel_fused_kernel` in
 // s2i_tpu/ops/mel_kernel.py (wrapper `logmel_pallas_fused`). Like it, the
@@ -7,39 +7,166 @@
 // the wav span [f*hop, f*hop + win), read from a tile of the wav staged in
 // shared memory.
 //
-// What bounds it on this card: arithmetic. At the birds geometry (win 400,
-// 257 bins, 40 mels, 1024 frames) the DFT is 2*2*400*257 = 411 kFLOP per
-// frame against 1.6 kB of wav read and 160 B of log-mel written, far above
-// the H100's ~20 FLOP/byte fp32 ridge. The work is fp32 FMA on the CUDA
-// cores (no TF32 tensor-core path: the log that follows amplifies the
-// product's error in near-zero bins, so parity needs full fp32).
+// Why an FFT and not the TPU kernel's DFT matmul: the TPU kernel multiplies
+// frames by dense [win, n_bins] cos/sin tables because its matrix unit makes
+// that cheap. On this card the dense DFT runs on the CUDA cores (TF32 tensor
+// cores break parity: the log amplifies their error in near-empty bins; a
+// 3xTF32 split would still do ~30x the FFT's work): 2*2*400*257 = 411 kFLOP
+// per frame at the birds geometry (win 400, hop 160, n_fft 512, 40 mels),
+// which bound the earlier kernel by operations. A 512-point real FFT as a
+// 256-point complex FFT plus a split step is ~10 kFLOP (5*M*log2 M), and the
+// mel filterbank has 490 non-zeros in contiguous runs of at most 36 bins, so
+// a sparse projection is ~1 kFLOP: with the window, split and power, ~16
+// kFLOP per frame (chip_smoke.py's count), 26x less.
 //
-// Design: one block per (utterance, tile of kTile frames).
-//   1. The block stages its tile's contiguous wav span, (kTile-1)*hop + win
-//      samples, in shared memory (zero past the end of the signal).
-//   2. Thread k owns DFT bin k and keeps re/im of all kTile frames in
-//      registers; each cos/sin table entry it loads (from L2, coalesced
-//      across the warp) feeds 2*kTile FMAs. When hop is a multiple of 4 the
-//      wav is read 4 samples at a time (one 16-byte shared load feeds 8
-//      FMAs), so the loop is bound by the FMA pipe, not shared memory.
-//   3. The power spectrum [kTile, n_bins] stays in shared memory; the block
-//      projects it on the mel filterbank and writes log(mel + offset).
-// Any frame geometry works: no limit on n_fft/hop. The tables may carry
-// zero rows past the window (the wrapper pads them to a multiple of 4).
-// Shared memory holds the tile's power spectrum, so n_bins stays below
-// ~1600 (n_fft <= 3200 at hop 160) on an H100; beyond that the launch
-// returns cudaErrorInvalidValue and the wrapper raises.
+// What bounds it now: operations, in float64 (mel_common.cuh says why
+// float64). Per frame the kernel reads hop = 160 new wav samples (640 B) and
+// writes 40 log-mels (160 B): 800 B against ~16 kFLOP. At the encoder batch
+// (64 x 164,080 samples, 1024 frames each) that is 42.0 MB read + 10.5 MB
+// written = 15.7 us at 3.35 TB/s, and 1.05 GFLOP = 30.9 us at the H100's 34
+// TFLOP/s of float64 (67 in float32: 15.7 us).
+//
+// Design (FFT branch, n_fft a power of two from 128 to 2048): a persistent
+// grid, as many blocks as stay resident (two of 8 warps per SM at n_fft 512),
+// each walking tiles of 2 frames per warp (16) of one utterance:
+//   1. The block copies the packed constant table (mel_common.cuh) into
+//      shared memory once, and each tile's contiguous wav span,
+//      (tile-1)*hop + win samples, with 16-byte cp.async (plain loads for
+//      the unaligned ends, zero past the end of the signal) into one of two
+//      slots: the next tile's copy is in flight while the warps work on this
+//      one. HBM sees each sample about once (neighbouring spans overlap by
+//      win - hop samples).
+//   2. Each warp takes a frame: window, FFT, split and power in float64
+//      (mel_common.cuh), the power spectrum to the tile's rows in shared
+//      memory.
+//   3. The block projects the tile's spectra on the mel runs (a thread per
+//      (filter, frame)), takes the log, and stores the tile's contiguous
+//      log-mel rows with coalesced stores.
+//
+// DFT branch (any other n_fft, chosen by shape only): the dense windowed DFT
+// of the earlier kernel. Thread k owns bin k and keeps re/im of kTileDft
+// frames in registers; each cos/sin table entry feeds 2*kTileDft FMAs; the
+// power spectrum stays in shared memory for the dense mel projection.
+//
+// A geometry past the card's per-block shared memory returns
+// cudaErrorInvalidValue and the wrapper raises.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "mel_common.cuh"
 
 namespace {
 
-constexpr int kTile = 32;  // frames per block
+constexpr int kTileDft = 32;  // frames per block, DFT branch
+
+// Frames per tile of the FFT branch: two per warp.
+__host__ __device__ constexpr int fft_tile(int log2m) { return 2 * mel::warps(log2m); }
+
+// Shared bytes of one staged wav span of a tile (+3 floats of alignment shift).
+__host__ __device__ inline int span_bytes(int log2m, int hop, int win) {
+  return mel::round16(4 * ((fft_tile(log2m) - 1) * hop + win + 3));
+}
+
+// Issues the copies of a tile's span: `span` samples from w, of which
+// `left` lie in the signal (zero past it), to base + shift, where xs[i]
+// sits at the same address mod 16 as w[i] so the aligned middle moves in
+// 16-byte cp.async; the unaligned ends and the zeros are plain stores.
+// Returns xs.
+__device__ float* stage_span(const float* w, long left, int span, float* base) {
+  const int shift = (int)((reinterpret_cast<uintptr_t>(w) >> 2) & 3);
+  float* xs = base + shift;
+  const int valid = left < span ? (int)left : span;
+  const int head = min((4 - shift) & 3, valid);
+  const int chunks = (valid - head) / 4;
+  for (int i = threadIdx.x; i < head; i += blockDim.x) xs[i] = w[i];
+  for (int c = threadIdx.x; c < chunks; c += blockDim.x) mel::cp_async16(xs + head + 4 * c, w + head + 4 * c);
+  for (int i = head + 4 * chunks + threadIdx.x; i < valid; i += blockDim.x) xs[i] = w[i];
+  for (int i = valid + threadIdx.x; i < span; i += blockDim.x) xs[i] = 0.0f;
+  return xs;
+}
+
+// Persistent: block i takes tiles i, i + gridDim.x, ... (tile t: utterance
+// t / tiles_per_utt, frames from (t % tiles_per_utt)·tile). It copies the
+// table once, and the next tile's span while its warps work on this one.
+template <int kLog2M>
+__global__ void __launch_bounds__(32 * mel::warps(kLog2M)) mel_fused_fft_kernel(
+    const float* __restrict__ wav,   // [B, n_samples]
+    int n_samples,
+    const char* __restrict__ table,  // packed constants, table_bytes
+    int table_bytes,
+    float* __restrict__ out,         // [B, n_frames, n_mels]
+    int n_frames, int hop, int win, int n_mels, float log_offset, int tiles_per_utt, int n_tiles) {
+  constexpr int kWarps = mel::warps(kLog2M), kTile = fft_tile(kLog2M), kStride = mel::power_stride(kLog2M);
+  extern __shared__ __align__(16) char smem_bytes[];  // named apart from the DFT branch's float smem[]
+  // [table][span slot 0][span slot 1][one padded M-point buffer per warp]
+  // [power spectra of the tile][log-mel rows of the tile]
+  const int span = (kTile - 1) * hop + win;
+  const int slot = span_bytes(kLog2M, hop, win);
+  float* slots[2] = {reinterpret_cast<float*>(smem_bytes + table_bytes),
+                     reinterpret_cast<float*>(smem_bytes + table_bytes + slot)};
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  char* after_slots = smem_bytes + table_bytes + 2 * slot;
+  double2* buf = reinterpret_cast<double2*>(after_slots) + warp * mel::padded(1 << kLog2M);
+  float* power = reinterpret_cast<float*>(after_slots + mel::buffer_bytes(kLog2M));
+  float* out_tile = power + mel::round16(4 * kTile * kStride) / 4;
+
+  auto issue = [&](int t, float* base) {
+    const int b = t / tiles_per_utt;
+    const long start = (long)(t - b * tiles_per_utt) * kTile * hop;
+    return stage_span(wav + (long)b * n_samples + start, n_samples - start, span, base);
+  };
+  mel::stage_table(smem_bytes, table, table_bytes);
+  int t = blockIdx.x;
+  float* xs = issue(t, slots[0]);
+  mel::cp_async_commit();
+  for (int i = 0; t < n_tiles; ++i, t += gridDim.x) {
+    const int next = t + gridDim.x;
+    float* xs_next = next < n_tiles ? issue(next, slots[(i + 1) & 1]) : nullptr;
+    mel::cp_async_commit();
+    mel::cp_async_wait<1>();  // this tile's span (and the table) have landed
+    __syncthreads();
+    const int b = t / tiles_per_utt;
+    const int f0 = (t - b * tiles_per_utt) * kTile;
+    const int n_rows = min(kTile, n_frames - f0);
+    for (int f = warp; f < n_rows; f += kWarps)
+      mel::frame_power<kLog2M>(xs + f * hop, smem_bytes, buf, power + f * kStride, win, lane);
+    __syncthreads();
+    mel::mel_tile(smem_bytes, power, kStride, n_rows, kTile, out_tile, n_mels, log_offset);
+    __syncthreads();
+    float* dst = out + ((long)b * n_frames + f0) * n_mels;  // the tile's rows are contiguous
+    for (int o = threadIdx.x; o < n_rows * n_mels; o += blockDim.x) dst[o] = out_tile[o];
+    __syncthreads();  // the span slot and out_tile are free again
+    xs = xs_next;
+  }
+}
+
+template <int kLog2M>
+cudaError_t launch_fft(const float* wav, int batch, int n_samples, const char* table, int table_bytes,
+                       float* out, int n_frames, int hop, int win, int n_mels, float log_offset,
+                       cudaStream_t stream) {
+  const void* kernel = (const void*)mel_fused_fft_kernel<kLog2M>;
+  const int threads = 32 * mel::warps(kLog2M);
+  const size_t smem = (size_t)table_bytes + 2 * (size_t)span_bytes(kLog2M, hop, win) + mel::buffer_bytes(kLog2M) +
+                      mel::tile_bytes(fft_tile(kLog2M), kLog2M, n_mels);
+  cudaError_t err = mel::set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles_per_utt = (n_frames + fft_tile(kLog2M) - 1) / fft_tile(kLog2M);
+  const long n_tiles = (long)tiles_per_utt * batch;
+  if (n_tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  int grid = 0;
+  err = mel::persistent_grid(kernel, threads, smem, (int)n_tiles, &grid);
+  if (err != cudaSuccess) return err;
+  mel_fused_fft_kernel<kLog2M><<<grid, threads, smem, stream>>>(
+      wav, n_samples, table, table_bytes, out, n_frames, hop, win, n_mels, log_offset, tiles_per_utt,
+      (int)n_tiles);
+  return cudaGetLastError();
+}
 
 template <bool kVec4>
-__global__ void mel_fused_kernel(
-    const float* __restrict__ wav,   // [B, n_samples]
+__global__ void mel_fused_dft_kernel(
+    const float* __restrict__ wav,    // [B, n_samples]
     int n_samples,
     const float* __restrict__ cos_t,  // [win, n_bins], window folded in
     const float* __restrict__ sin_t,  // [win, n_bins]
@@ -48,12 +175,12 @@ __global__ void mel_fused_kernel(
     int n_frames, int hop, int win, int n_bins, int n_mels,
     float log_offset) {
   extern __shared__ __align__(16) float smem[];
-  const int span = (kTile - 1) * hop + win;
-  float* xs = smem;                      // [span (rounded up to 4)]
-  float* power = smem + ((span + 3) & ~3);  // [kTile, n_bins]
+  const int span = (kTileDft - 1) * hop + win;
+  float* xs = smem;                          // [span (rounded up to 4)]
+  float* power = smem + ((span + 3) & ~3);  // [kTileDft, n_bins]
 
   const int b = blockIdx.y;
-  const int f0 = blockIdx.x * kTile;
+  const int f0 = blockIdx.x * kTileDft;
   const long start = (long)f0 * hop;
   const float* w = wav + (long)b * n_samples;
   for (int i = threadIdx.x; i < span; i += blockDim.x) {
@@ -63,9 +190,9 @@ __global__ void mel_fused_kernel(
   __syncthreads();
 
   for (int k = threadIdx.x; k < n_bins; k += blockDim.x) {
-    float re[kTile], im[kTile];
+    float re[kTileDft], im[kTileDft];
 #pragma unroll
-    for (int f = 0; f < kTile; ++f) {
+    for (int f = 0; f < kTileDft; ++f) {
       re[f] = 0.0f;
       im[f] = 0.0f;
     }
@@ -80,7 +207,7 @@ __global__ void mel_fused_kernel(
         const float s2 = sin_t[(t + 2) * n_bins + k];
         const float s3 = sin_t[(t + 3) * n_bins + k];
 #pragma unroll
-        for (int f = 0; f < kTile; ++f) {
+        for (int f = 0; f < kTileDft; ++f) {
           const float4 x = *reinterpret_cast<const float4*>(xs + f * hop + t);
           re[f] = fmaf(x.x, c0, re[f]);
           im[f] = fmaf(x.x, s0, im[f]);
@@ -97,7 +224,7 @@ __global__ void mel_fused_kernel(
         const float c = cos_t[t * n_bins + k];
         const float s = sin_t[t * n_bins + k];
 #pragma unroll
-        for (int f = 0; f < kTile; ++f) {
+        for (int f = 0; f < kTileDft; ++f) {
           const float x = xs[f * hop + t];
           re[f] = fmaf(x, c, re[f]);
           im[f] = fmaf(x, s, im[f]);
@@ -105,13 +232,13 @@ __global__ void mel_fused_kernel(
       }
     }
 #pragma unroll
-    for (int f = 0; f < kTile; ++f) {
+    for (int f = 0; f < kTileDft; ++f) {
       power[f * n_bins + k] = re[f] * re[f] + im[f] * im[f];
     }
   }
   __syncthreads();
 
-  for (int o = threadIdx.x; o < kTile * n_mels; o += blockDim.x) {
+  for (int o = threadIdx.x; o < kTileDft * n_mels; o += blockDim.x) {
     const int f = o / n_mels;
     const int m = o - f * n_mels;
     if (f0 + f >= n_frames) continue;
@@ -123,26 +250,19 @@ __global__ void mel_fused_kernel(
 }
 
 template <bool kVec4>
-cudaError_t launch(const float* wav, int batch, int n_samples,
-                   const float* cos_t, const float* sin_t, const float* mel_t,
-                   float* out, int n_frames, int hop, int win, int n_bins,
-                   int n_mels, float log_offset, cudaStream_t stream) {
-  const int span = (kTile - 1) * hop + win;
+cudaError_t launch_dft(const float* wav, int batch, int n_samples,
+                       const float* cos_t, const float* sin_t, const float* mel_t,
+                       float* out, int n_frames, int hop, int win, int n_bins,
+                       int n_mels, float log_offset, cudaStream_t stream) {
+  const int span = (kTileDft - 1) * hop + win;
   const size_t smem =
-      sizeof(float) * ((size_t)((span + 3) & ~3) + (size_t)kTile * n_bins);
-  int device = 0, smem_max = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         device);
-  if (smem > (size_t)smem_max) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      mel_fused_kernel<kVec4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      sizeof(float) * ((size_t)((span + 3) & ~3) + (size_t)kTileDft * n_bins);
+  cudaError_t err = mel::set_smem((const void*)mel_fused_dft_kernel<kVec4>, smem);
   if (err != cudaSuccess) return err;
   int threads = ((n_bins + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
-  const dim3 grid((n_frames + kTile - 1) / kTile, batch);
-  mel_fused_kernel<kVec4><<<grid, threads, smem, stream>>>(
+  const dim3 grid((n_frames + kTileDft - 1) / kTileDft, batch);
+  mel_fused_dft_kernel<kVec4><<<grid, threads, smem, stream>>>(
       wav, n_samples, cos_t, sin_t, mel_t, out, n_frames, hop, win, n_bins,
       n_mels, log_offset);
   return cudaGetLastError();
@@ -150,20 +270,48 @@ cudaError_t launch(const float* wav, int batch, int n_samples,
 
 }  // namespace
 
-extern "C" int s2i_mel_fused(const float* wav, int batch, int n_samples,
-                             const float* cos_t, const float* sin_t,
-                             const float* mel_t, float* out, int n_frames,
-                             int hop, int win, int n_bins, int n_mels,
-                             float log_offset, void* stream) {
+// FFT branch. table: ops/mel_kernel.py::fft_table's packed constants
+// (table_bytes, a multiple of 16, 16-byte aligned); n_fft a power of two,
+// 128..2048.
+extern "C" int s2i_mel_fused_fft(const float* wav, int batch, int n_samples,
+                                 const char* table, int table_bytes, float* out,
+                                 int n_frames, int hop, int win, int n_fft,
+                                 int n_mels, float log_offset, void* stream) {
+  const int log2m = mel::fft_log2m(n_fft);
+  if (batch <= 0 || n_frames <= 0 || hop <= 0 || win <= 0 || win > n_fft || n_mels <= 0 ||
+      log2m < 0 || table_bytes % 16 != 0 || reinterpret_cast<uintptr_t>(table) % 16 != 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (log2m) {
+#define S2I_MEL_CASE(L) \
+  case L:               \
+    return launch_fft<L>(wav, batch, n_samples, table, table_bytes, out, n_frames, hop, win, n_mels, log_offset, s);
+    S2I_MEL_CASE(6)
+    S2I_MEL_CASE(7)
+    S2I_MEL_CASE(8)
+    S2I_MEL_CASE(9)
+    S2I_MEL_CASE(10)
+#undef S2I_MEL_CASE
+  }
+  return cudaErrorInvalidValue;
+}
+
+// DFT branch: cos_t/sin_t [rows, n_bins] with rows = win rounded up to a
+// multiple of 4 (zero rows past the window), mel_t [n_bins, n_mels].
+extern "C" int s2i_mel_fused_dft(const float* wav, int batch, int n_samples,
+                                 const float* cos_t, const float* sin_t,
+                                 const float* mel_t, float* out, int n_frames,
+                                 int hop, int win, int n_bins, int n_mels,
+                                 float log_offset, void* stream) {
   if (batch <= 0 || n_frames <= 0 || hop <= 0 || win <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // The 16-byte path needs every frame start and the window rows on a
   // multiple of 4 samples; the wrapper pads the tables' rows accordingly.
   if (hop % 4 == 0 && win % 4 == 0)
-    return launch<true>(wav, batch, n_samples, cos_t, sin_t, mel_t, out,
-                        n_frames, hop, win, n_bins, n_mels, log_offset, s);
-  return launch<false>(wav, batch, n_samples, cos_t, sin_t, mel_t, out,
-                       n_frames, hop, win, n_bins, n_mels, log_offset, s);
+    return launch_dft<true>(wav, batch, n_samples, cos_t, sin_t, mel_t, out,
+                            n_frames, hop, win, n_bins, n_mels, log_offset, s);
+  return launch_dft<false>(wav, batch, n_samples, cos_t, sin_t, mel_t, out,
+                           n_frames, hop, win, n_bins, n_mels, log_offset, s);
 }
 
 extern "C" const char* s2i_mel_fused_error_string(int err) {

@@ -13,6 +13,13 @@ cut out first (:func:`frame_rows`, a PyTorch op, as the JAX package leaves
 it to XLA), then ``logmel_frames`` on them: ``csrc/mel_framed.cu`` (K4) for a
 CUDA tensor, :func:`logmel_framed_plain` for a CPU tensor. The frontend
 does not select it; it serves the frontend A/B.
+
+Both kernels have two branches, chosen by shape only (:func:`kernel_branch`):
+``"fft"`` for n_fft a power of two from 128 to 2048 (a shared-memory real
+FFT and a sparse mel projection, ``csrc/mel_common.cuh``, fed by the packed
+constants of :func:`fft_table`), ``"dft"`` for any other n_fft (the dense
+windowed DFT, fed by :func:`_tables`). Each wrapper's ``branch`` attribute
+names the branch of its last launch.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from s2i_tpu_torch.audio import filters
 from s2i_tpu_torch.ops import build
 
 
@@ -57,16 +65,118 @@ def _tables(p, device: torch.device) -> tuple[torch.Tensor, ...]:
     return tuple(torch.from_numpy(a).to(device) for a in (cos, sin, mel_t))
 
 
+FFT_SIZES = tuple(2**k for k in range(7, 12))  # n_fft of the FFT branch: 128 .. 2048
+_HEADER_BYTES = 32  # the packed table's int32 words ahead of its regions
+
+
+def kernel_branch(p) -> str:
+    """The kernels' branch for ``p``'s geometry: "fft" or "dft"."""
+    return "fft" if p.n_fft in FFT_SIZES else "dft"
+
+
+def mel_runs(mel_fb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(lo, hi) per filter: the run [lo, hi) from its first to its last
+    non-zero weight; lo == hi for an empty filter."""
+    lo = np.zeros(len(mel_fb), np.int32)
+    hi = np.zeros(len(mel_fb), np.int32)
+    for m, row in enumerate(mel_fb):
+        nz = np.flatnonzero(row)
+        if nz.size:
+            lo[m], hi[m] = nz[0], nz[-1] + 1
+    return lo, hi
+
+
+def fft_radices(m: int) -> list[int]:
+    """The radices of the kernels' M-point Stockham FFT, in stage order:
+    8 while three bits remain, then 4 or 2 (256 = 8·8·4)."""
+    bits = m.bit_length() - 1
+    return [8] * (bits // 3) + {0: [], 1: [2], 2: [4]}[bits % 3]
+
+
+@functools.lru_cache(maxsize=8)
+def fft_constants(p) -> dict[str, np.ndarray]:
+    """The FFT branch's constants, float64 or complex128 (M = n_fft/2):
+
+    - ``window`` [win];
+    - ``tw``: each stage's twiddles after the first, end to end: a stage of
+      radix R after stages whose radices multiply to ns has
+      ``W^(r·k)``, W = exp(-2πi/(ns·R)), at [(r-1)·ns + k], r = 1..R-1,
+      k = 0..ns-1;
+    - ``split`` [M/2+1]: A_k = (1 - i W^k)/2, W = exp(-2πi/n_fft). Bin k of
+      the real frame x is ``A_k Z[k] + B_k conj(Z[M-k])`` with
+      B_k = 1 - A_k, where Z is the M-point FFT of z[n] = x[2n] + i x[2n+1]
+      (Z[M] = Z[0]); for k > M/2, A_k = conj(A_{M-k});
+    - the mel runs (``mel_runs``) and their weights, ``p.mel_fb``'s float32
+      values laid end to end (``mel_w``)."""
+    m = p.n_fft // 2
+    tw, ns = [], 1
+    for radix in fft_radices(m)[1:]:
+        ns *= 8  # every stage but the last is radix 8
+        r, k = np.meshgrid(np.arange(1, radix), np.arange(ns), indexing="ij")
+        tw.append(np.exp(-2j * np.pi * r * k / (ns * radix)).ravel())
+    lo, hi = mel_runs(p.mel_fb)
+    return {
+        "window": filters.hann_window(p.win_length),
+        "tw": np.concatenate(tw),
+        "split": (1 - 1j * np.exp(-2j * np.pi * np.arange(m // 2 + 1) / p.n_fft)) / 2,
+        "mel_lo": lo,
+        "mel_hi": hi,
+        "mel_w": np.concatenate([p.mel_fb[i, lo[i]:hi[i]] for i in range(p.n_mels)]).astype(np.float32),
+    }
+
+
+def fft_table(p) -> np.ndarray:
+    """:func:`fft_constants` packed in one byte buffer that a block copies
+    into shared memory whole: a header of 8 int32 words (total bytes, then
+    the byte offsets of the regions, as csrc/mel_common.cuh's ``Header``
+    names them), then the split factors (complex128), the twiddles
+    (complex128), the window as float64 pairs (w[2n], w[2n+1]) (zero past an
+    odd window), the mel weights (float32) and the runs as int32 triples
+    (lo, hi, offset of the filter's first weight), each region starting at a
+    multiple of 16 bytes."""
+    c = fft_constants(p)
+    window = np.zeros(-(-p.win_length // 2) * 2)
+    window[: p.win_length] = c["window"]
+    starts = np.concatenate([[0], np.cumsum(c["mel_hi"] - c["mel_lo"])[:-1]])
+    regions = [
+        c["split"].astype(np.complex128),
+        c["tw"].astype(np.complex128),
+        window,
+        c["mel_w"],
+        np.stack([c["mel_lo"], c["mel_hi"], starts], axis=1).astype(np.int32).ravel(),
+    ]
+    offsets, end = [], _HEADER_BYTES
+    for r in regions:
+        offsets.append(end)
+        end += -(-r.nbytes // 16) * 16
+    table = np.zeros(end, np.uint8)
+    for off, r in zip(offsets, regions):
+        table[off:off + r.nbytes] = r.view(np.uint8)
+    table[:24] = np.array([end, *offsets], np.int32).view(np.uint8)
+    return table
+
+
+@functools.lru_cache(maxsize=8)
+def _fft_table(p, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(fft_table(p)).to(device)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("mel_fused")
-    if lib.s2i_mel_fused.argtypes is None:
-        lib.s2i_mel_fused.argtypes = [
+    if lib.s2i_mel_fused_fft.argtypes is None:
+        lib.s2i_mel_fused_fft.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ]
+        lib.s2i_mel_fused_fft.restype = ctypes.c_int
+        lib.s2i_mel_fused_dft.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_void_p,
         ]
-        lib.s2i_mel_fused.restype = ctypes.c_int
+        lib.s2i_mel_fused_dft.restype = ctypes.c_int
         lib.s2i_mel_fused_error_string.argtypes = [ctypes.c_int]
         lib.s2i_mel_fused_error_string.restype = ctypes.c_char_p
     return lib
@@ -86,25 +196,45 @@ def logmel(wav: torch.Tensor, p, n_frames: int) -> torch.Tensor:
         return logmel_plain(wav, p, n_frames)
     if wav.device.type != "cuda":
         raise ValueError(f"unsupported device {wav.device}")
+    branch = kernel_branch(p)
+    out = launch_fused(wav, p, n_frames, branch)
+    logmel.launches += 1
+    logmel.branch = branch
+    return out
+
+
+def launch_fused(wav: torch.Tensor, p, n_frames: int, branch: str) -> torch.Tensor:
+    """K1's ``branch`` on a CUDA wav, uncounted: :func:`logmel` passes
+    :func:`kernel_branch`'s choice; ``"dft"`` takes any n_fft, so a
+    measurement can time the dense DFT beside the FFT on one geometry."""
     wav = wav.contiguous()
-    cos, sin, mel_t = _tables(p, wav.device)
     out = torch.empty((wav.shape[0], n_frames, p.n_mels), device=wav.device)
+    stream = torch.cuda.current_stream(wav.device).cuda_stream
     lib = _lib()
-    err = lib.s2i_mel_fused(
-        wav.data_ptr(), wav.shape[0], wav.shape[1],
-        cos.data_ptr(), sin.data_ptr(), mel_t.data_ptr(), out.data_ptr(),
-        n_frames, p.hop_length, cos.shape[0], p.n_bins, p.n_mels,
-        p.log_offset, torch.cuda.current_stream(wav.device).cuda_stream,
-    )
+    if branch == "fft":
+        table = _fft_table(p, wav.device)
+        err = lib.s2i_mel_fused_fft(
+            wav.data_ptr(), wav.shape[0], wav.shape[1], table.data_ptr(), table.numel(),
+            out.data_ptr(), n_frames, p.hop_length, p.win_length, p.n_fft, p.n_mels,
+            p.log_offset, stream,
+        )
+    else:
+        cos, sin, mel_t = _tables(p, wav.device)
+        err = lib.s2i_mel_fused_dft(
+            wav.data_ptr(), wav.shape[0], wav.shape[1],
+            cos.data_ptr(), sin.data_ptr(), mel_t.data_ptr(), out.data_ptr(),
+            n_frames, p.hop_length, cos.shape[0], p.n_bins, p.n_mels,
+            p.log_offset, stream,
+        )
     if err:
         raise RuntimeError(
-            f"mel_fused kernel: {lib.s2i_mel_fused_error_string(err).decode()}"
+            f"mel_fused kernel ({branch}): {lib.s2i_mel_fused_error_string(err).decode()}"
         )
-    logmel.launches += 1
     return out
 
 
 logmel.launches = 0  # kernel launches since the last reset
+logmel.branch = None  # "fft" or "dft": the branch of the last launch
 
 
 def frame_rows(wav: torch.Tensor, p, n_frames: int) -> torch.Tensor:
@@ -131,13 +261,18 @@ def logmel_framed_plain(frames: torch.Tensor, p) -> torch.Tensor:
 
 def _framed_lib() -> ctypes.CDLL:
     lib = build.load("mel_framed")
-    if lib.s2i_mel_framed.argtypes is None:
-        lib.s2i_mel_framed.argtypes = [
+    if lib.s2i_mel_framed_fft.argtypes is None:
+        lib.s2i_mel_framed_fft.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ]
+        lib.s2i_mel_framed_fft.restype = ctypes.c_int
+        lib.s2i_mel_framed_dft.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
         ]
-        lib.s2i_mel_framed.restype = ctypes.c_int
+        lib.s2i_mel_framed_dft.restype = ctypes.c_int
         lib.s2i_mel_framed_error_string.argtypes = [ctypes.c_int]
         lib.s2i_mel_framed_error_string.restype = ctypes.c_char_p
     return lib
@@ -156,25 +291,41 @@ def logmel_frames(frames: torch.Tensor, p) -> torch.Tensor:
         return logmel_framed_plain(frames, p)
     if frames.device.type != "cuda":
         raise ValueError(f"unsupported device {frames.device}")
+    branch = kernel_branch(p)
+    out = launch_framed(frames, p, branch)
+    logmel_frames.launches += 1
+    logmel_frames.branch = branch
+    return out
+
+
+def launch_framed(frames: torch.Tensor, p, branch: str) -> torch.Tensor:
+    """K4's ``branch`` on CUDA frame rows, uncounted (see :func:`launch_fused`)."""
     frames = frames.contiguous()
-    cos, sin, mel_t = _tables(p, frames.device)
     out = torch.empty((frames.shape[0], p.n_mels), device=frames.device)
+    stream = torch.cuda.current_stream(frames.device).cuda_stream
     lib = _framed_lib()
-    err = lib.s2i_mel_framed(
-        frames.data_ptr(), frames.shape[0], frames.shape[1],
-        cos.data_ptr(), sin.data_ptr(), mel_t.data_ptr(), out.data_ptr(),
-        cos.shape[0], p.n_bins, p.n_mels, p.log_offset,
-        torch.cuda.current_stream(frames.device).cuda_stream,
-    )
+    if branch == "fft":
+        table = _fft_table(p, frames.device)
+        err = lib.s2i_mel_framed_fft(
+            frames.data_ptr(), frames.shape[0], frames.shape[1], table.data_ptr(), table.numel(),
+            out.data_ptr(), p.win_length, p.n_mels, p.log_offset, stream,
+        )
+    else:
+        cos, sin, mel_t = _tables(p, frames.device)
+        err = lib.s2i_mel_framed_dft(
+            frames.data_ptr(), frames.shape[0], frames.shape[1],
+            cos.data_ptr(), sin.data_ptr(), mel_t.data_ptr(), out.data_ptr(),
+            cos.shape[0], p.n_bins, p.n_mels, p.log_offset, stream,
+        )
     if err:
         raise RuntimeError(
-            f"mel_framed kernel: {lib.s2i_mel_framed_error_string(err).decode()}"
+            f"mel_framed kernel ({branch}): {lib.s2i_mel_framed_error_string(err).decode()}"
         )
-    logmel_frames.launches += 1
     return out
 
 
 logmel_frames.launches = 0  # kernel launches since the last reset
+logmel_frames.branch = None  # "fft" or "dft": the branch of the last launch
 
 
 def logmel_framed(wav: torch.Tensor, p) -> torch.Tensor:

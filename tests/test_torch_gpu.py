@@ -6,7 +6,7 @@ imports nothing of JAX, so it also runs where only the port is installed:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerances are absolute, for float32 sums taken in another order than the
-plain version's: 1e-4 on log-mel (400-term DFT sums, then a log), 2e-4 on
+plain version's: 1e-4 on log-mel (FFT or 400-term DFT sums, then a log), 2e-4 on
 normalized features (that error over the utterance's standard deviation),
 1e-5 on GRU states (H-term dot products over T dependent steps), 1e-4 on
 images (the encoder and generator behind them). GRU gradients: 5e-6 of the
@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from s2i_tpu_torch import config
+from s2i_tpu_torch.audio import filters
 from s2i_tpu_torch.audio import frontend as tf
 from s2i_tpu_torch.ops import gru_kernel, mel_kernel
 from s2i_tpu_torch.pipeline import SpeechToImage, build_encoder, build_generator
@@ -43,49 +44,140 @@ def _signals(n: int, b: int = 3, seed: int = 0) -> np.ndarray:
     return np.stack(rows).astype(np.float32)
 
 
+def _unaligned(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x`` whose data starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+# (kw, n, branch): the log-mel geometries the card tests run
+LOGMEL_CASES = {
+    "birds": (dict(), 16000, "fft"),  # win 400, hop 160, n_fft 512
+    "hop40-center": (dict(hop_length=40, center=True, preemphasis=0.97), 9000, "fft"),  # n_fft/hop 12.8
+    "hop33": (dict(win_length=250, hop_length=33, n_fft=256), 7000, "fft"),  # hop not a multiple of 4
+    "nfft-gt-win": (dict(win_length=250, hop_length=33, n_fft=256, center=True, preemphasis=0.97), 7000, "fft"),
+    "htk-256": (dict(win_length=250, hop_length=100, n_fft=256, htk_mel=True), 7000, "fft"),  # narrow filters
+    "nfft128": (dict(win_length=100, hop_length=50, n_fft=128), 5000, "fft"),
+    "nfft2048": (dict(win_length=1600, hop_length=400, n_fft=2048), 20000, "fft"),
+    "nfft400-dft": (dict(win_length=400, hop_length=160, n_fft=400), 16000, "dft"),  # not a power of two
+}
+
+
+def _case(name: str) -> tuple[str, str]:
+    """"birds" → ("birds", ""); "birds+zero-row" → ("birds", "zero-row")."""
+    case, _, variant = name.partition("+")
+    return case, variant
+
+
 @pytest.mark.parametrize(
-    "kw,n",
-    [
-        (dict(), 16000),  # the birds geometry: win 400, hop 160, n_fft 512
-        (dict(hop_length=40, center=True, preemphasis=0.97), 9000),  # n_fft/hop 12.8
-        (dict(win_length=250, hop_length=33, n_fft=256), 7000),  # hop not a multiple of 4
-    ],
-    ids=["birds", "hop40-center", "hop33"],
+    "name",
+    ["birds", "hop40-center", "hop33", "birds+zero-row", "birds+fewer-frames", "hop33+unaligned", "htk-256",
+     "nfft128", "nfft2048", "nfft400-dft", "nfft400-dft+zero-row", "birds+batch40", "nfft2048+batch40"],
 )
-def test_logmel_kernel_matches_plain(card, kw, n):
+def test_logmel_kernel_matches_plain(card, name):
+    case, variant = _case(name)
+    kw, n, branch = LOGMEL_CASES[case]
     p = tf.FrontendParams(**kw)
-    wav = tf.center_pad(tf.preemphasize(torch.from_numpy(_signals(n)).to(card), p.preemphasis), p)
+    b, n = (40, max(n, 48000)) if variant == "batch40" else (3, n)  # more tiles than the persistent grid's blocks
+    sig = _signals(n, b)
+    if variant == "zero-row":
+        sig[1] = 0.0  # every filter gives log(offset)
+    wav = tf.center_pad(tf.preemphasize(torch.from_numpy(sig).to(card), p.preemphasis), p)
+    if variant == "unaligned":
+        wav = _unaligned(wav)
     frames = mel_kernel.num_frames(wav.shape[1], p)
+    if variant == "fewer-frames":
+        frames -= 7
     before = mel_kernel.logmel.launches
     got = mel_kernel.logmel(wav, p, frames)
     torch.cuda.synchronize()
     assert mel_kernel.logmel.launches == before + 1
+    assert mel_kernel.logmel.branch == mel_kernel.kernel_branch(p) == branch
     want = mel_kernel.logmel_plain(wav, p, frames)
+    assert got.shape == want.shape == (b, frames, p.n_mels)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize(
-    "kw,n",
-    [(dict(), 16000), (dict(win_length=250, hop_length=33, n_fft=256, center=True, preemphasis=0.97), 7000)],
-    ids=["birds", "nfft-gt-win"],
+    "name",
+    ["birds", "nfft-gt-win", "birds+zero-row", "birds+fewer-frames", "birds+unaligned", "htk-256",
+     "nfft128", "nfft2048", "nfft400-dft", "birds+batch40", "nfft2048+batch40"],
 )
-def test_logmel_framed_kernel_matches_plain(card, kw, n):
+def test_logmel_framed_kernel_matches_plain(card, name):
     """K4 on a ragged batch (zero tails) against its plain version."""
+    case, variant = _case(name)
+    kw, n, branch = LOGMEL_CASES[case]
     p = tf.FrontendParams(**kw)
-    wav = _signals(n)
+    b, n = (40, max(n, 48000)) if variant == "batch40" else (3, n)  # more tiles than the persistent grid's blocks
+    wav = _signals(n, b)
     wav[1, n // 3:] = 0.0
     wav[2, 500:] = 0.0
+    if variant == "zero-row":
+        wav[0] = 0.0
     w = torch.from_numpy(wav).to(card)
     x = tf.center_pad(tf.preemphasize(w, p.preemphasis), p)
-    rows = mel_kernel.frame_rows(x, p, mel_kernel.num_frames(x.shape[1], p))
+    frames = mel_kernel.num_frames(x.shape[1], p) - (7 if variant == "fewer-frames" else 0)
+    rows = mel_kernel.frame_rows(x, p, frames)
+    if variant == "unaligned":
+        rows = _unaligned(rows)
     before = mel_kernel.logmel_frames.launches
     got = mel_kernel.logmel_frames(rows, p)
     torch.cuda.synchronize()
     assert mel_kernel.logmel_frames.launches == before + 1
+    assert mel_kernel.logmel_frames.branch == mel_kernel.kernel_branch(p) == branch
     want = mel_kernel.logmel_framed_plain(rows, p)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=0)
     np.testing.assert_allclose(mel_kernel.logmel_framed(w, p).cpu().numpy(),
                                mel_kernel.logmel_framed(torch.from_numpy(wav), p).numpy(), atol=1e-4, rtol=0)
+
+
+def _logmel_f64(frames: torch.Tensor, p: tf.FrontendParams) -> np.ndarray:
+    """The plain arithmetic in float64, from the float64 tables: frames
+    [..., win] → log-mel [..., n_mels]."""
+    cos, sin = filters.windowed_dft_matrices(p.win_length, p.n_fft)
+    fb = filters.mel_filterbank(p.sample_rate, p.n_fft, p.n_mels, p.fmin, p.fmax, htk=p.htk_mel, norm=p.mel_norm)
+    x = frames.double().cpu().numpy()
+    return np.log(((x @ cos) ** 2 + (x @ sin) ** 2) @ fb.T + p.log_offset)
+
+
+def test_logmel_kernels_with_empty_filters_match_float64(card):
+    """HTK filters at n_fft 256 with 80 mels: the narrowest cover one bin
+    and two cover none, which give log(offset). The float32 plain version
+    strays from the float64 arithmetic by more than 1e-4 in these narrow
+    filters on the ragged batch (1.3e-4, on an H100), so both kernels are
+    held to the float64 arithmetic itself, at the same 1e-4."""
+    p = tf.FrontendParams(win_length=250, hop_length=100, n_fft=256, n_mels=80, htk_mel=True)
+    empty = np.flatnonzero(~p.mel_fb.any(axis=1))
+    assert empty.size == 2
+    wav = _signals(7000)
+    wav[1, 7000 // 3:] = 0.0
+    wav[2, 500:] = 0.0
+    x = torch.from_numpy(wav).to(card)
+    n = mel_kernel.num_frames(x.shape[1], p)
+    frames = x.unfold(-1, p.win_length, p.hop_length)[:, :n]
+    fused = mel_kernel.logmel(x, p, n)
+    framed = mel_kernel.logmel_frames(mel_kernel.frame_rows(x, p, n), p).view(3, n, p.n_mels)
+    torch.cuda.synchronize()
+    assert mel_kernel.logmel.branch == mel_kernel.logmel_frames.branch == "fft"
+    want = _logmel_f64(frames, p)
+    for got in (fused, framed):
+        got = got.cpu().numpy()
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+        np.testing.assert_allclose(got[..., empty], np.log(p.log_offset), atol=2e-6, rtol=0)  # a float32 ulp
+
+
+def test_logmel_kernels_raise_past_shared_memory(card):
+    """n_fft 2048 at hop 8000: two staged spans of a 4-frame tile (~208 kB)
+    beside the constants and buffers are more than a block may hold, so the
+    launch is refused and the wrapper raises, launching nothing."""
+    p = tf.FrontendParams(win_length=2048, hop_length=8000, n_fft=2048)
+    wav = torch.zeros(1, 80000, device=card)
+    before = mel_kernel.logmel.launches
+    with pytest.raises(RuntimeError, match="mel_fused kernel"):
+        mel_kernel.logmel(wav, p, mel_kernel.num_frames(wav.shape[1], p))
+    assert mel_kernel.logmel.launches == before
 
 
 def test_gan_step_on_the_card_matches_cpu(card):
