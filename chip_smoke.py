@@ -14,8 +14,10 @@ Phases, each of which passes or raises (nothing is caught):
                log-mel kernels print the branch they took (FFT or dense
                DFT), their and the plain version's distance from the float64
                arithmetic (the FFT branch may be no further from it), their
-               time warm and with L2 flushed, the dense DFT branch's time on
-               the same input, and the cuFFT route as a yardstick. The GRU
+               time warm and with L2 flushed, their bounds (the branch's
+               operations at their types' peaks or bytes; the float32
+               bound and the dense DFT's beside it), and the cuFFT route
+               as a yardstick. The GRU
                kernels run as the paths call them, both directions of the
                layer in one launch (plus one direction alone at batch 64),
                beside cuDNN's GRU on the same weights; the backward runs
@@ -240,15 +242,31 @@ def time_cold_ms(fn, reps: int = 10) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
-def mel_fft_flops(p: FrontendParams, frames: int) -> float:
-    """Operations of the FFT branch on ``frames`` frames: the window (win
-    products) + the n_fft/2 = M-point complex FFT (5·M·log2 M) + the split
-    step and power (17 per bin, M + 1 bins: two complex products, their sum,
-    |X|²) + the sparse mel projection (2 per non-zero weight) + the log (1
-    per mel)."""
+# Operations of one R-point DFT in registers (mel_common.cuh's dft_regs<R>):
+# radix 2 one complex add and sub; radix 4 eight; radix 8 two radix-4 DFTs,
+# the W_8 and W_8^3 products (2 adds + 2 products each) and eight complex
+# adds or subs.
+BUTTERFLY_OPS = {2: 4, 4: 16, 8: 56}
+CMUL_OPS = 6  # a complex product: 4 products + 2 adds
+
+
+def mel_fft_ops(p: FrontendParams, frames: int) -> tuple[float, float]:
+    """(float64, float32) operations of the FFT branch on ``frames`` frames,
+    as mel_common.cuh does them. float64: the window (win products), the
+    M = n_fft/2-point Stockham FFT (per stage of radix R, M/R butterflies,
+    each BUTTERFLY_OPS[R] plus R-1 twiddle products after the first stage),
+    the split step (9 per bin: per pair (k, M-k) two differences and eight
+    FMAs) and the power (3 per bin), over M + 1 bins. float32: the sparse
+    mel projection (one FMA per non-zero weight) and per mel two adds and
+    the log."""
     m = p.n_fft // 2
-    nnz = int(np.count_nonzero(p.mel_fb))
-    return frames * (p.win_length + 5.0 * m * np.log2(m) + 17.0 * (m + 1) + 2.0 * nnz + p.n_mels)
+    fft, ns = 0.0, 1
+    for radix in mel_kernel.fft_radices(m):
+        fft += m // radix * (BUTTERFLY_OPS[radix] + (radix - 1) * CMUL_OPS * (ns > 1))
+        ns *= radix
+    f64 = p.win_length + fft + 12.0 * (m + 1)
+    f32 = 2.0 * np.count_nonzero(p.mel_fb) + 3.0 * p.n_mels
+    return frames * f64, frames * f32
 
 
 def mel_dft_flops(p: FrontendParams, frames: int) -> float:
@@ -257,16 +275,24 @@ def mel_dft_flops(p: FrontendParams, frames: int) -> float:
 
 
 def mel_bounds(p: FrontendParams, frames: int, in_bytes: float, out_bytes: float) -> dict:
-    """bound_ms / bound_by of the branch the kernels take for ``p``, and the
-    dense DFT's bound beside it (each with its own constant tables read once).
-    The FFT branch computes in float64, the DFT branch in float32."""
-    fft_table = mel_kernel.fft_table(p).nbytes
+    """bound_ms / bound_by of the branch the kernels take for ``p``, with the
+    float32 bound (``f32_bound_ms``: the same work at the float32 peak, as a
+    float32 kernel could do it) and the dense DFT's bound (``dft_bound_ms``)
+    beside it, each with its own constant tables read once. The FFT branch
+    does its window, FFT, split and power in float64 and its mel and log in
+    float32: its bound is the largest of the bytes' time and each type's
+    operations over that type's peak (the H100 has separate float64 and
+    float32 units). The DFT branch computes in float32."""
+    nbytes = in_bytes + out_bytes + mel_kernel.fft_table(p).nbytes
+    f64, f32 = mel_fft_ops(p, frames)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, max(f64 / PEAK_FP64_FLOPS, f32 / PEAK_FP32_FLOPS)
+    f32_ms, f32_by = bound(f64 + f32, nbytes)
     dft_tables = 4.0 * (2 * p.win_length * p.n_bins + p.n_bins * p.n_mels)
-    fft_ms, fft_by = bound(mel_fft_flops(p, frames), in_bytes + out_bytes + fft_table, PEAK_FP64_FLOPS)
     dft_ms, dft_by = bound(mel_dft_flops(p, frames), in_bytes + out_bytes + dft_tables)
     if mel_kernel.kernel_branch(p) == "fft":
-        return dict(bound_ms=fft_ms, bound_by=fft_by, dft_bound_ms=dft_ms)
-    return dict(bound_ms=dft_ms, bound_by=dft_by, dft_bound_ms=dft_ms)
+        return dict(bound_ms=1e3 * max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                    f32_bound_ms=f32_ms, f32_bound_by=f32_by, dft_bound_ms=dft_ms)
+    return dict(bound_ms=dft_ms, bound_by=dft_by, f32_bound_ms=dft_ms, f32_bound_by=dft_by, dft_bound_ms=dft_ms)
 
 
 def logmel_f64(frames: torch.Tensor, p: FrontendParams) -> torch.Tensor:
@@ -313,12 +339,13 @@ def check_mel_precision(rows: dict[str, dict]) -> None:
         raise AssertionError(f"log-mel kernels further from float64 than the plain version (kernel, plain): {worse}")
 
 
-def mel_times(kernel, plain, dft, cufft) -> dict:
+def mel_times(kernel, plain, cufft) -> dict:
     """Device ms of a log-mel kernel warm and with L2 flushed, its plain
-    version, the dense DFT branch on the same input, and the cuFFT route."""
+    version and the cuFFT route. No single PyTorch call computes the
+    function, so library_ms is None."""
     return dict(ms=time_ms(kernel, queued=True), ms_l2_flushed=time_cold_ms(kernel),
-                plain_ms=time_ms(plain, queued=True), dft_branch_ms=time_ms(dft, queued=True),
-                cufft_route_ms=time_ms(cufft, queued=True))
+                plain_ms=time_ms(plain, queued=True), cufft_route_ms=time_ms(cufft, queued=True),
+                library_ms=None)
 
 
 def log_mel_row(name: str, label: str, shape: str, row: dict) -> None:
@@ -327,14 +354,14 @@ def log_mel_row(name: str, label: str, shape: str, row: dict) -> None:
         f"{row['cufft_f64_err']:.3g}")
     log(f"[kernels] {name} {label} {shape}: branch {row['branch']} max_abs_err={row['max_abs_err']:.3g} "
         f"(vs float64: kernel {row['f64_err']:.3g}, plain {row['plain_f64_err']:.3g}) kernel_ms={row['ms']:.4f} "
-        f"(L2 flushed {row['ms_l2_flushed']:.4f}; dense DFT branch {row['dft_branch_ms']:.4f}) "
-        f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; dense DFT "
-        f"{row['dft_bound_ms']:.4f}) library_ms=none")
+        f"(L2 flushed {row['ms_l2_flushed']:.4f}) plain_ms={row['plain_ms']:.4f} "
+        f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}; float32 {row['f32_bound_ms']:.5f} "
+        f"({row['f32_bound_by']}); dense DFT {row['dft_bound_ms']:.4f}) library_ms=none")
 
 
 def kernel_logmel(p: FrontendParams, wavs: np.ndarray, label: str) -> dict:
-    """K1 on ``wavs`` against its plain version, float64, the dense DFT
-    branch and the cuFFT route."""
+    """K1 on ``wavs`` against its plain version, float64 and the cuFFT
+    route."""
     x = center_pad(preemphasize(torch.from_numpy(wavs).cuda(), p.preemphasis), p)
     n = min(mel_kernel.num_frames(x.shape[1], p), p.max_frames)
     got = mel_kernel.logmel(x, p, n)
@@ -343,8 +370,7 @@ def kernel_logmel(p: FrontendParams, wavs: np.ndarray, label: str) -> dict:
     route = cufft_route(frames, p)
     row = dict(branch=mel_kernel.logmel.branch,
                **mel_errors(got, mel_kernel.logmel_plain(x, p, n), route(), frames, p, f"K1 {label}"))
-    row.update(mel_times(lambda: mel_kernel.logmel(x, p, n), lambda: mel_kernel.logmel_plain(x, p, n),
-                         lambda: mel_kernel.launch_fused(x, p, n, "dft"), route))
+    row.update(mel_times(lambda: mel_kernel.logmel(x, p, n), lambda: mel_kernel.logmel_plain(x, p, n), route))
     b = wavs.shape[0]
     covered = (n - 1) * p.hop_length + p.win_length  # the samples the frames read, per utterance
     row.update(mel_bounds(p, b * n, 4.0 * b * covered, 4.0 * b * n * p.n_mels))
@@ -353,9 +379,9 @@ def kernel_logmel(p: FrontendParams, wavs: np.ndarray, label: str) -> dict:
 
 
 def kernel_mel_framed(p: FrontendParams, wavs: np.ndarray, label: str) -> dict:
-    """K4 on the frame rows of ``wavs`` against its plain version, float64,
-    the dense DFT branch and the cuFFT route. The bound reads the win
-    samples of each row that count (the window is zero past them)."""
+    """K4 on the frame rows of ``wavs`` against its plain version, float64
+    and the cuFFT route. The bound reads the win samples of each row that
+    count (the window is zero past them)."""
     x = center_pad(preemphasize(torch.from_numpy(wavs).cuda(), p.preemphasis), p)
     rows = mel_kernel.frame_rows(x, p, mel_kernel.num_frames(x.shape[1], p))
     got = mel_kernel.logmel_frames(rows, p)
@@ -365,7 +391,7 @@ def kernel_mel_framed(p: FrontendParams, wavs: np.ndarray, label: str) -> dict:
     row = dict(branch=mel_kernel.logmel_frames.branch,
                **mel_errors(got, mel_kernel.logmel_framed_plain(rows, p), route(), frames, p, f"K4 {label}"))
     row.update(mel_times(lambda: mel_kernel.logmel_frames(rows, p), lambda: mel_kernel.logmel_framed_plain(rows, p),
-                         lambda: mel_kernel.launch_framed(rows, p, "dft"), route))
+                         route))
     r = rows.shape[0]
     row.update(mel_bounds(p, r, 4.0 * r * p.win_length, 4.0 * r * p.n_mels))
     log_mel_row("mel_framed", label, f"B={wavs.shape[0]} wav={wavs.shape[1]} rows={r}x{p.n_fft}", row)

@@ -14,14 +14,14 @@
 // card the dense DFT runs on the CUDA cores (TF32 breaks parity through the
 // log): 2*2*400*257 = 411 kFLOP per row at the birds geometry, which bound
 // the earlier kernel by operations; a 512-point real FFT (256-point complex
-// FFT + split step) with a sparse mel projection (490 non-zeros) is ~16
-// kFLOP per row (chip_smoke.py's count).
+// FFT + split step) with a sparse mel projection (490 non-zeros) is ~11.7
+// kFLOP per row (chip_smoke.py's mel_fft_ops).
 //
-// What bounds it now: bytes, barely. A row costs 1.6 kB of samples read
-// (the first 400 of its 512) and 160 B of log-mel written against ~16
-// kFLOP of float64 (mel_common.cuh says why float64). At the A/B shape
-// (3,184 rows) that is 5.1 MB + 0.5 MB = 1.7 us at 3.35 TB/s against 51
-// MFLOP = 1.5 us at 34 TFLOP/s.
+// What bounds it now: bytes. A row costs 1.6 kB of samples read (the first
+// 400 of its 512) and 160 B of log-mel written against ~10.6 kFLOP of
+// float64 (mel_common.cuh says why float64) and ~1.1 kFLOP of float32. At
+// the A/B shape (3,184 rows) that is 5.1 MB + 0.5 MB = 1.7 us at 3.35 TB/s
+// against 34 MFLOP = 1.0 us at 34 TFLOP/s of float64.
 //
 // Design (FFT branch, n_fft a power of two from 128 to 2048): mel_fused.cu's
 // persistent structure on rows: as many blocks as stay resident, each

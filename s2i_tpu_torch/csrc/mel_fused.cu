@@ -14,17 +14,20 @@
 // 3xTF32 split would still do ~30x the FFT's work): 2*2*400*257 = 411 kFLOP
 // per frame at the birds geometry (win 400, hop 160, n_fft 512, 40 mels),
 // which bound the earlier kernel by operations. A 512-point real FFT as a
-// 256-point complex FFT plus a split step is ~10 kFLOP (5*M*log2 M), and the
-// mel filterbank has 490 non-zeros in contiguous runs of at most 36 bins, so
-// a sparse projection is ~1 kFLOP: with the window, split and power, ~16
-// kFLOP per frame (chip_smoke.py's count), 26x less.
+// 256-point complex FFT (8x8x4 Stockham: ~7.1 kFLOP) plus a split step and
+// power (12 per bin), with the 400 window products, is ~10.6 kFLOP per
+// frame; the mel filterbank has 490 non-zeros in contiguous runs of at most
+// 36 bins, so a sparse projection and the log are ~1.1 kFLOP: ~11.7 kFLOP,
+// 35x less than the DFT alone (chip_smoke.py's mel_fft_ops counts them).
 //
 // What bounds it now: operations, in float64 (mel_common.cuh says why
-// float64). Per frame the kernel reads hop = 160 new wav samples (640 B) and
-// writes 40 log-mels (160 B): 800 B against ~16 kFLOP. At the encoder batch
+// float64), just ahead of bytes. Per frame the kernel reads hop = 160 new
+// wav samples (640 B) and writes 40 log-mels (160 B). At the encoder batch
 // (64 x 164,080 samples, 1024 frames each) that is 42.0 MB read + 10.5 MB
-// written = 15.7 us at 3.35 TB/s, and 1.05 GFLOP = 30.9 us at the H100's 34
-// TFLOP/s of float64 (67 in float32: 15.7 us).
+// written = 15.7 us at 3.35 TB/s, against 0.69 GFLOP of float64 = 20.4 us
+// at the H100's 34 TFLOP/s (the float32 mel and log, 0.07 GFLOP, run on
+// other units). Done all in float32 the same work would be bound by the
+// bytes (0.77 GFLOP = 11.4 us at 67 TFLOP/s).
 //
 // Design (FFT branch, n_fft a power of two from 128 to 2048): a persistent
 // grid, as many blocks as stay resident (two of 8 warps per SM at n_fft 512),
@@ -70,14 +73,14 @@ __host__ __device__ inline int span_bytes(int log2m, int hop, int win) {
 }
 
 // Issues the copies of a tile's span: `span` samples from w, of which
-// `left` lie in the signal (zero past it), to base + shift, where xs[i]
-// sits at the same address mod 16 as w[i] so the aligned middle moves in
-// 16-byte cp.async; the unaligned ends and the zeros are plain stores.
-// Returns xs.
+// `left` lie in the signal (zero past it; none if left <= 0), to
+// base + shift, where xs[i] sits at the same address mod 16 as w[i] so the
+// aligned middle moves in 16-byte cp.async; the unaligned ends and the
+// zeros are plain stores. Returns xs.
 __device__ float* stage_span(const float* w, long left, int span, float* base) {
   const int shift = (int)((reinterpret_cast<uintptr_t>(w) >> 2) & 3);
   float* xs = base + shift;
-  const int valid = left < span ? (int)left : span;
+  const int valid = left <= 0 ? 0 : (left < span ? (int)left : span);
   const int head = min((4 - shift) & 3, valid);
   const int chunks = (valid - head) / 4;
   for (int i = threadIdx.x; i < head; i += blockDim.x) xs[i] = w[i];
@@ -272,7 +275,7 @@ cudaError_t launch_dft(const float* wav, int batch, int n_samples,
 
 // FFT branch. table: ops/mel_kernel.py::fft_table's packed constants
 // (table_bytes, a multiple of 16, 16-byte aligned); n_fft a power of two,
-// 128..2048.
+// 128..2048; n_frames at most the frames that fit in n_samples.
 extern "C" int s2i_mel_fused_fft(const float* wav, int batch, int n_samples,
                                  const char* table, int table_bytes, float* out,
                                  int n_frames, int hop, int win, int n_fft,
@@ -281,6 +284,8 @@ extern "C" int s2i_mel_fused_fft(const float* wav, int batch, int n_samples,
   if (batch <= 0 || n_frames <= 0 || hop <= 0 || win <= 0 || win > n_fft || n_mels <= 0 ||
       log2m < 0 || table_bytes % 16 != 0 || reinterpret_cast<uintptr_t>(table) % 16 != 0)
     return cudaErrorInvalidValue;
+  // every frame lies inside the signal: n_frames <= 1 + (n_samples - win) / hop
+  if (n_samples < win || n_frames - 1 > (n_samples - win) / hop) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (log2m) {
 #define S2I_MEL_CASE(L) \

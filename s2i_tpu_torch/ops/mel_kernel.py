@@ -19,7 +19,7 @@ Both kernels have two branches, chosen by shape only (:func:`kernel_branch`):
 FFT and a sparse mel projection, ``csrc/mel_common.cuh``, fed by the packed
 constants of :func:`fft_table`), ``"dft"`` for any other n_fft (the dense
 windowed DFT, fed by :func:`_tables`). Each wrapper's ``branch`` attribute
-names the branch of its last launch.
+names the branch of its last launch; ``launches`` counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -196,21 +196,11 @@ def logmel(wav: torch.Tensor, p, n_frames: int) -> torch.Tensor:
         return logmel_plain(wav, p, n_frames)
     if wav.device.type != "cuda":
         raise ValueError(f"unsupported device {wav.device}")
-    branch = kernel_branch(p)
-    out = launch_fused(wav, p, n_frames, branch)
-    logmel.launches += 1
-    logmel.branch = branch
-    return out
-
-
-def launch_fused(wav: torch.Tensor, p, n_frames: int, branch: str) -> torch.Tensor:
-    """K1's ``branch`` on a CUDA wav, uncounted: :func:`logmel` passes
-    :func:`kernel_branch`'s choice; ``"dft"`` takes any n_fft, so a
-    measurement can time the dense DFT beside the FFT on one geometry."""
     wav = wav.contiguous()
     out = torch.empty((wav.shape[0], n_frames, p.n_mels), device=wav.device)
     stream = torch.cuda.current_stream(wav.device).cuda_stream
     lib = _lib()
+    branch = kernel_branch(p)
     if branch == "fft":
         table = _fft_table(p, wav.device)
         err = lib.s2i_mel_fused_fft(
@@ -230,6 +220,8 @@ def launch_fused(wav: torch.Tensor, p, n_frames: int, branch: str) -> torch.Tens
         raise RuntimeError(
             f"mel_fused kernel ({branch}): {lib.s2i_mel_fused_error_string(err).decode()}"
         )
+    logmel.launches += 1
+    logmel.branch = branch
     return out
 
 
@@ -291,19 +283,11 @@ def logmel_frames(frames: torch.Tensor, p) -> torch.Tensor:
         return logmel_framed_plain(frames, p)
     if frames.device.type != "cuda":
         raise ValueError(f"unsupported device {frames.device}")
-    branch = kernel_branch(p)
-    out = launch_framed(frames, p, branch)
-    logmel_frames.launches += 1
-    logmel_frames.branch = branch
-    return out
-
-
-def launch_framed(frames: torch.Tensor, p, branch: str) -> torch.Tensor:
-    """K4's ``branch`` on CUDA frame rows, uncounted (see :func:`launch_fused`)."""
     frames = frames.contiguous()
     out = torch.empty((frames.shape[0], p.n_mels), device=frames.device)
     stream = torch.cuda.current_stream(frames.device).cuda_stream
     lib = _framed_lib()
+    branch = kernel_branch(p)
     if branch == "fft":
         table = _fft_table(p, frames.device)
         err = lib.s2i_mel_framed_fft(
@@ -321,6 +305,8 @@ def launch_framed(frames: torch.Tensor, p, branch: str) -> torch.Tensor:
         raise RuntimeError(
             f"mel_framed kernel ({branch}): {lib.s2i_mel_framed_error_string(err).decode()}"
         )
+    logmel_frames.launches += 1
+    logmel_frames.branch = branch
     return out
 
 

@@ -180,6 +180,31 @@ def test_logmel_kernels_raise_past_shared_memory(card):
     assert mel_kernel.logmel.launches == before
 
 
+def test_logmel_rejects_frames_past_the_signal(card):
+    """More frames than the wav holds: the wrapper raises before launching,
+    and the library's FFT entry refuses them too (it would stage spans that
+    start past the signal) and leaves the output as it was."""
+    p = tf.FrontendParams()
+    wav = torch.from_numpy(_signals(16000)).to(card)
+    n = mel_kernel.num_frames(wav.shape[1], p)
+    before = mel_kernel.logmel.launches
+    with pytest.raises(ValueError, match="n_frames"):
+        mel_kernel.logmel(wav, p, n + 1)
+    assert mel_kernel.logmel.launches == before
+    table = mel_kernel.fft_table(p)
+    table = torch.from_numpy(table).to(card)
+    for frames in (n + 1, n + 64):
+        out = torch.full((wav.shape[0], frames, p.n_mels), 7.0, device=card)
+        err = mel_kernel._lib().s2i_mel_fused_fft(
+            wav.data_ptr(), wav.shape[0], wav.shape[1], table.data_ptr(), table.numel(), out.data_ptr(),
+            frames, p.hop_length, p.win_length, p.n_fft, p.n_mels, p.log_offset,
+            torch.cuda.current_stream().cuda_stream,
+        )
+        torch.cuda.synchronize()
+        assert err != 0
+        assert (out == 7.0).all()
+
+
 def test_gan_step_on_the_card_matches_cpu(card):
     cfg = config.apply_overrides(config.default_cfg(), [
         "TREE.BRANCH_NUM=2", "GAN.GF_DIM=4", "GAN.DF_DIM=4", "GAN.Z_DIM=8", "GAN.EMBEDDING_DIM=16",

@@ -9,14 +9,15 @@ schedule with the table's twiddles), the split step with the table's
 (A_k, B_k), the power, the sparse mel runs. Tolerances: 1e-9 of the largest
 power (float64 rounding only), 1e-12·n_fft on the Stockham FFT against
 np.fft.fft, and 1e-4 absolute on log-mel against the float32 plain version
-(its own DFT rounding)."""
+(its own DFT rounding). One test runs the same model in complex64 to pin why
+the kernels compute in float64."""
 
 import numpy as np
 import pytest
 import torch
 
 from s2i_tpu_torch.audio import filters
-from s2i_tpu_torch.audio.frontend import FrontendParams
+from s2i_tpu_torch.audio.frontend import FrontendParams, center_pad, preemphasize
 from s2i_tpu_torch.ops import mel_kernel
 
 GEOMETRIES = {
@@ -71,20 +72,18 @@ def _stockham(z: np.ndarray, tw: np.ndarray) -> np.ndarray:
     by the stage's table at [(r-1)·ns + j mod ns] (tw: the stages' tables
     after the first, end to end), and writes its R-point DFT to
     out[(j - j mod ns)·R + j mod ns + r·ns]."""
-    m = z.shape[-1]
+    lead, m = z.shape[:-1], z.shape[-1]
     ns = 1
     for radix in mel_kernel.fft_radices(m):
-        j = np.arange(m // radix)
-        k = j % ns
-        r = np.arange(radix)[:, None]
-        v = z[..., j + r * (m // radix)]
+        # v[..., r, q, k] = in[j + r·M/R], j = q·ns + k
+        v = z.reshape(*lead, radix, m // (radix * ns), ns)
         if ns > 1:
-            v = v * np.concatenate([np.ones((1, ns)), tw[: (radix - 1) * ns].reshape(radix - 1, ns)])[:, k]
+            table = tw[: (radix - 1) * ns].reshape(radix - 1, 1, ns)
+            v = v * np.concatenate([np.ones((1, 1, ns), table.dtype), table])
             tw = tw[(radix - 1) * ns:]
-        v = np.fft.fft(v, axis=-2)  # the R-point DFT in registers
-        out = np.empty_like(z)
-        out[..., (j - k) * radix + k + r * ns] = v
-        z, ns = out, ns * radix
+        v = np.fft.fft(v, axis=-3)  # the R-point DFT in registers
+        # out[q·ns·R + r·ns + k] = v[..., r, q, k]
+        z, ns = np.swapaxes(v, -3, -2).reshape(*lead, m), ns * radix
     assert tw.size == 0  # every twiddle used
     return z
 
@@ -183,3 +182,45 @@ def test_branch_is_chosen_by_n_fft_only():
     mel_kernel.logmel(torch.zeros(1, 1000), p, 2)
     mel_kernel.logmel_frames(torch.zeros(2, p.n_fft), p)
     assert (mel_kernel.logmel.launches, mel_kernel.logmel_frames.launches) == before
+
+
+def _tones(n_samples: int, lens, seed: int) -> np.ndarray:
+    """chip_smoke.py's tone_batch: tones plus a noise floor, zero past each
+    utterance's length."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_samples) / 16000.0
+    wavs = np.zeros((len(lens), n_samples), np.float32)
+    for i, n in enumerate(lens):
+        x = 0.3 * np.sin(2 * np.pi * 180.0 * (i + 1) * t * (1 + 0.5 * t)) + 0.02 * rng.standard_normal(n_samples)
+        wavs[i, :n] = x[:n]
+    return wavs
+
+
+def test_fft_formulation_needs_float64_at_the_hop40_geometry():
+    """Why the kernels' window, FFT and split run in float64: on
+    chip_smoke.py's hop-40 input (center pad, pre-emphasis 0.97, ragged),
+    the FFT formulation computed in complex64 lands further from the float64
+    arithmetic than the float32 plain version, and in float64 ten times
+    closer. The split step cancels: a weak bin k is the difference of Z[k]
+    and Z[M-k], whose rounding follows the strong mirrored bin, and the
+    pre-emphasized frames have weak low bins mirroring boosted high ones.
+    Both models keep the kernels' float32 power rows and mel sums."""
+    p = FrontendParams(hop_length=40, center=True, preemphasis=0.97, max_frames=4096)
+    wav = _tones(64000, [64000, 30011, 5000, 401, 64000, 12345, 777, 50000], 2)
+    x = center_pad(preemphasize(torch.from_numpy(wav), p.preemphasis), p)
+    n = mel_kernel.num_frames(x.shape[1], p)
+    frames = x.unfold(-1, p.win_length, p.hop_length)[:, :n].reshape(-1, p.win_length).numpy()
+    cos, sin = filters.windowed_dft_matrices(p.win_length, p.n_fft)
+    f64 = frames.astype(np.float64)
+    want = np.log(((f64 @ cos) ** 2 + (f64 @ sin) ** 2) @ p.mel_fb.astype(np.float64).T + p.log_offset)
+    plain_err = np.abs(mel_kernel.logmel_plain(x, p, n).reshape(-1, p.n_mels).numpy() - want).max()
+    c = mel_kernel.fft_constants(p)
+    errs = {}
+    for real, cplx in ((np.float32, np.complex64), (np.float64, np.complex128)):
+        xw = np.zeros((len(frames), p.n_fft), real)
+        xw[:, : p.win_length] = frames.astype(real) * c["window"].astype(real)
+        z = _stockham((xw[:, 0::2] + 1j * xw[:, 1::2]).astype(cplx), c["tw"].astype(cplx))
+        assert z.dtype == cplx
+        power = _split_power(z, c["split"].astype(cplx)).astype(np.float32)
+        errs[real] = np.abs(np.log((power @ p.mel_fb.T).astype(np.float64) + p.log_offset) - want).max()
+    assert errs[np.float32] > plain_err > 10 * errs[np.float64], (errs, plain_err)
