@@ -48,7 +48,20 @@ Phases, each of which passes or raises (nothing is caught):
                then the step time, its parts and peak memory;
   8. joint   - the same for cfg/birds_joint_ft.yml: the speech encoder in
                G's optimizer group on ragged synthetic WAVs, featurized per
-               step (K1), its recurrence through K2 forward and K3 backward.
+               step (K1), its recurrence through K2 forward and K3 backward;
+  9. loop    - the trainer loop (train.loop.GanTrainer) on the joint cfg at
+               full width, batch 24, with cuDNN's deterministic algorithms:
+               4 steps straight, and 2 steps, a stop, and a resume by a new
+               trainer to step 4; the two final states (every parameter,
+               buffer, Adam state, EMA, the step) must be bitwise equal (else
+               the resume must lie within the spread of two straight runs and
+               the checkpoint round trip must be bitwise: the phase prints
+               which held); checkpoint bytes, save and restore ms, BN recalc
+               under the EMA (EVAL.EMA_BN_RECALC batches) ms with the
+               trainer's G untouched, sample_to_dir images/s, and the serve
+               phase's WAVs through SpeechToImage.from_checkpoints of the
+               run, bitwise equal to a pipeline of the trainer's in-memory
+               EMA state; K1, K2 and K3 once per step, K1 and K2 per serve.
 The last lines are a JSON record of the kernels, the card as nvidia-smi
 names it, and {"ok": true, "device": {...}}.
 """
@@ -59,7 +72,9 @@ import io
 import itertools
 import json
 import os
+import shutil
 import subprocess
+import tempfile
 import threading
 import time
 import urllib.request
@@ -77,7 +92,7 @@ from s2i_tpu_torch.audio.frontend import (
     preemphasize,
 )
 from s2i_tpu_torch.audio.wavio import write_wav
-from s2i_tpu_torch.data import synthetic_wavs
+from s2i_tpu_torch.data import SyntheticGanDataset, synthetic_wavs
 from s2i_tpu_torch.device import resolve_device
 from s2i_tpu_torch.models.layers import BatchNorm
 from s2i_tpu_torch.ops import build, gru_kernel, mel_kernel
@@ -85,8 +100,10 @@ from s2i_tpu_torch.pipeline import SpeechToImage, build_encoder, build_generator
 from s2i_tpu_torch.serving import make_server
 from s2i_tpu_torch.train import encoder as encoder_train
 from s2i_tpu_torch.train import gan
+from s2i_tpu_torch.train.loop import GanTrainer
 from s2i_tpu_torch.train.encoder import encoder_train_step, init_encoder_state
 from s2i_tpu_torch.train.losses import distillation_loss
+from s2i_tpu_torch.utils.checkpoint import to_host
 
 # NVIDIA H100 SXM data sheet (700 W): fp32 and fp64 without tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
@@ -102,6 +119,8 @@ GAN_BATCH = 24  # TRAIN.BATCH_SIZE of cfg/birds_3stages.yml and cfg/birds_joint_
 GAN_STEPS = 3  # steps of each counted GAN run
 GAN_STEP_RUNS = 10  # timed GAN steps, after 2 of warm-up
 CHECK_BATCH = 4  # batch of the first GAN step held card vs CPU
+LOOP_STEPS = 4  # steps of the loop phase's runs; the stopped run stops at half of them
+LOOP_SAMPLES = 48  # embeddings sampled to PNGs by the loop phase, GAN_BATCH at a time
 AB_SHAPE = (8, 64000)  # scripts/perf_cert.py::cert_mel's wav batch
 FLUSH_BYTES = 256 << 20  # written between launches of a cold timing: five times the H100's 50 MB L2
 
@@ -644,13 +663,18 @@ def post_wavs(url: str, bodies: list[bytes]) -> list[tuple[int, bytes]]:
     return out
 
 
+def serve_wavs(p: FrontendParams) -> tuple[np.ndarray, np.ndarray]:
+    """The serve phase's BATCH tone WAVs, up to the longest the frontend takes, and their lengths."""
+    lens = np.asarray([p.max_samples, 150000, 120000, 96000, 64000, 48000, 30000, 16000], np.int32)
+    return tone_batch(p.max_samples, lens, 3), lens
+
+
 def phase_serve(card: str) -> dict[str, int]:
     cfg = config.cfg_from_file("cfg/birds_3stages.yml")
     cfg.DTYPE.COMPUTE = "float32"
     p = frontend_params_from_cfg(cfg.AUDIO)
-    lens = [p.max_samples, 150000, 120000, 96000, 64000, 48000, 30000, 16000]
-    wavs = tone_batch(p.max_samples, lens, 3)
-    lens_np = np.asarray(lens, np.int32)
+    wavs, lens_np = serve_wavs(p)
+    lens = lens_np.tolist()
     z = np.random.default_rng(SEED).standard_normal((BATCH, int(cfg.GAN.Z_DIM))).astype(np.float32)
     pipe, enc_sd, g_sd = seeded_pipeline(cfg, wavs, lens_np, z)
     bodies = []
@@ -798,6 +822,7 @@ def phase_train(card: str) -> dict[str, int]:
         f"set-up included): losses {losses}, last {mets}; launches {launches}")
     if len(losses) != TRAIN_STEPS or not all(isinstance(v, float) and np.isfinite(v) for v in losses):
         raise AssertionError(f"training losses not finite, or not one per step: {losses}")
+    shutil.rmtree(run_dir)  # its checkpoint: the loop phase tests checkpoints
     want = {"mel_fused": TRAIN_STEPS, "gru_fwd": TRAIN_STEPS, "gru_bwd": TRAIN_STEPS, "mel_framed": 0}
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want} (K1, K2 and K3 once per step)")
@@ -1047,6 +1072,7 @@ def phase_gan(card: str, path: str) -> dict[str, int]:
     want = {"mel_fused": n, "gru_fwd": n, "gru_bwd": n, "mel_framed": 0}
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
+    shutil.rmtree(run_dir)  # its ~1.5 GB checkpoint: the loop phase tests checkpoints
 
     st = gan_first_step_vs_cpu(path)
 
@@ -1081,13 +1107,176 @@ def phase_gan(card: str, path: str) -> dict[str, int]:
     return launches
 
 
+def state_distance(a: dict, b: dict) -> float:
+    """The largest max-abs difference of two host state dicts' tensors, each
+    over max(1, the tensor's largest magnitude); inf where their keys,
+    shapes or scalars differ."""
+    fa, fb = flat_state(a), flat_state(b)
+    if fa.keys() != fb.keys():
+        return float("inf")
+    worst = 0.0
+    for k, x in fa.items():
+        y = fb[k]
+        if not torch.is_tensor(x):
+            if x != y:
+                return float("inf")
+        elif x.shape != y.shape:
+            return float("inf")
+        elif x.numel() and x.is_floating_point():
+            worst = max(worst, (x - y).abs().max().item() / max(1.0, x.abs().max().item()))
+        elif not torch.equal(x, y):
+            return float("inf")
+    return worst
+
+
+def flat_state(sd, prefix: str = "") -> dict:
+    if isinstance(sd, dict):
+        return {k: v for key, val in sd.items() for k, v in flat_state(val, f"{prefix}/{key}").items()}
+    if isinstance(sd, (list, tuple)):
+        return {k: v for i, val in enumerate(sd) for k, v in flat_state(val, f"{prefix}/{i}").items()}
+    return {prefix: sd}
+
+
+def states_equal(a: dict, b: dict) -> bool:
+    """Bitwise equality of two host state dicts."""
+    fa, fb = flat_state(a), flat_state(b)
+    return fa.keys() == fb.keys() and all(
+        torch.equal(x, fb[k]) if torch.is_tensor(x) else x == fb[k] for k, x in fa.items())
+
+
+def phase_loop(card: str) -> dict[str, int]:
+    """The trainer loop of cfg/birds_joint_ft.yml at full width and batch
+    GAN_BATCH, in a temporary run directory deleted at the end: resume,
+    checkpoints, BN recalc, sampling, and serving the run's checkpoint."""
+    cfg = gan_cfg("cfg/birds_joint_ft.yml", GAN_BATCH)
+    p = frontend_params_from_cfg(cfg.AUDIO)
+    recalc = int(cfg.EVAL.EMA_BN_RECALC)
+    factory = cli.gan_batch_factory(cfg)
+    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_loop_", dir=cfg.OUTPUT_DIR)
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    try:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+
+        def run(name: str, max_steps: int) -> GanTrainer:
+            t = GanTrainer(cfg, os.path.join(root, name), factory, log_every=1, image_every=0, device="cuda",
+                           max_to_keep=1)
+            t.train(max_steps=max_steps)
+            t.close()
+            return t
+
+        # the path, counted from zero: 4 steps straight; 2, a stop and 2 more
+        reset_counts()
+        t0 = time.time()
+        straight = run("straight", LOOP_STEPS)
+        want = to_host(straight.state.state_dict())
+        t1 = time.time()
+        half = run("stopped", LOOP_STEPS // 2).state.step
+        resumed = run("stopped", LOOP_STEPS)
+        got = to_host(resumed.state.state_dict())
+        t2 = time.time()
+        train_launches = read_counts()
+        log(f"[loop] {card}, {cfg.CONFIG_NAME}: {LOOP_STEPS} steps straight in {t1 - t0:.1f} s, {half} + "
+            f"{resumed.state.step - half} steps stopped and resumed in {t2 - t1:.1f} s (set-up and saves "
+            f"included); launches {train_launches}")
+        if half != LOOP_STEPS // 2 or resumed.state.step != LOOP_STEPS or straight.state.step != LOOP_STEPS:
+            raise AssertionError(f"steps: straight {straight.state.step}, stopped {half}, resumed "
+                                 f"{resumed.state.step}")
+        want_launches = {"mel_fused": 2 * LOOP_STEPS, "gru_fwd": 2 * LOOP_STEPS, "gru_bwd": 2 * LOOP_STEPS,
+                         "mel_framed": 0}
+        if train_launches != want_launches:
+            raise AssertionError(f"launches {train_launches}, expected {want_launches}: one of each per step")
+
+        # resumed vs straight; the checkpoint's bytes, save, restore and round trip
+        ckpt = resumed.ckpt
+        nbytes = os.path.getsize(ckpt.path(LOOP_STEPS))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(LOOP_STEPS, resumed.state, force=True)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ckpt.restore_latest(resumed.state)
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        round_trip = states_equal(to_host(resumed.state.state_dict()), got)
+        tensor_bytes = sum(v.numel() * v.element_size() for v in flat_state(got).values() if torch.is_tensor(v))
+        if states_equal(got, want):
+            held = "bitwise: resumed == straight"
+        else:
+            again = to_host(run("straight_again", LOOP_STEPS).state.state_dict())
+            spread, dist = state_distance(again, want), state_distance(got, want)
+            log(f"[loop] resumed != straight bitwise: distance {dist:.3g}, two straight runs {spread:.3g}")
+            if not (round_trip and dist <= spread):
+                raise AssertionError(f"resume off by {dist} against a spread of {spread}; round trip "
+                                     f"bitwise {round_trip}")
+            held = f"within the spread of two straight runs ({dist:.3g} <= {spread:.3g}) and round trip bitwise"
+        if not round_trip:
+            raise AssertionError("a checkpoint restored into its own state changed it")
+        log(f"[loop] {card}: resume check held: {held}; checkpoint {nbytes} bytes ({tensor_bytes} of "
+            f"tensors) save {save_ms:.1f} ms restore {restore_ms:.1f} ms (host clock, synchronized); round "
+            f"trip bitwise {round_trip}")
+        shutil.rmtree(os.path.join(root, "stopped"))
+        del resumed
+
+        # BN recalc under the EMA, then sampling, from the straight run
+        emb = SyntheticGanDataset(branch_num=int(cfg.TREE.BRANCH_NUM), base_size=int(cfg.TREE.BASE_SIZE),
+                                  emb_dim=int(cfg.TEXT.DIMENSION), seed=SEED + 999).embeddings
+        g_before = {k: v.clone() for k, v in straight.state.models.g.state_dict().items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g_eval = straight.eval_state(emb, seed=0)
+        torch.cuda.synchronize()
+        recalc_ms = 1e3 * (time.perf_counter() - t0)
+        moved = [k for k, v in g_eval.state_dict().items() if "running" in k and not torch.equal(v, g_before[k])]
+        t0 = time.perf_counter()
+        straight.sample_to_dir(emb[:LOOP_SAMPLES], os.path.join(root, "samples"), batch_size=GAN_BATCH)
+        sample_s = time.perf_counter() - t0
+        pngs = sorted(os.listdir(os.path.join(root, "samples")))
+        untouched = all(torch.equal(v, g_before[k]) for k, v in straight.state.models.g.state_dict().items())
+        # its part on the card: the same batches through gan.sample alone
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, LOOP_SAMPLES, GAN_BATCH):
+            gan.sample(g_eval, emb[i: i + GAN_BATCH], seed=0, offset=i)[-1].cpu()
+        gen_ms = 1e3 * (time.perf_counter() - t0)
+        log(f"[loop] {card}: eval_state (BN recalc, {recalc} batches of {GAN_BATCH}) {recalc_ms:.1f} ms, "
+            f"{len(moved)} running statistics moved; sample_to_dir {len(pngs)} PNGs at batch {GAN_BATCH} in "
+            f"{1e3 * sample_s:.1f} ms ({LOOP_SAMPLES / sample_s:.1f} images/s, its own BN recalc and PNG "
+            f"writes included; gan.sample of the same batches {gen_ms:.1f} ms, "
+            f"{LOOP_SAMPLES / gen_ms * 1e3:.1f} images/s); trainer's G untouched {untouched}")
+        if not (untouched and moved and len(pngs) == LOOP_SAMPLES):
+            raise AssertionError("BN recalc or sampling failed its checks")
+
+        # the run's checkpoint served: SpeechToImage.from_checkpoints vs the in-memory EMA state
+        wavs, lens = serve_wavs(p)
+        m = straight.state.models
+        mem = SpeechToImage(cfg, to_host(m.encoder.state_dict()),
+                            to_host({**m.g.state_dict(), **straight.state.ema}), joint=True, device="cuda")
+        reset_counts()
+        pipe = SpeechToImage.from_checkpoints(cfg, None, os.path.join(root, "straight", "ckpt"), device="cuda")
+        img = pipe.generate(wavs, lens, seed=SEED)
+        img_mem = mem.generate(wavs, lens, seed=SEED)
+        serve_launches = read_counts()
+        log(f"[loop] {card}: from_checkpoints: {img.shape} images bitwise equal to the in-memory pipeline's "
+            f"{np.array_equal(img, img_mem)} (std {img.std():.3f}); launches {serve_launches}")
+        if not (np.array_equal(img, img_mem) and np.isfinite(img).all() and img.shape == (BATCH, 256, 256, 3)):
+            raise AssertionError("the checkpoint's pipeline serves other images than the trainer's state")
+        if not (serve_launches["mel_fused"] and serve_launches["gru_fwd"]):
+            raise AssertionError(f"serving the checkpoint skipped a kernel: {serve_launches}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+        shutil.rmtree(root, ignore_errors=True)
+    return {k: train_launches[k] + serve_launches[k] for k in train_launches}
+
+
 def main() -> None:
     name, smi = phase_device()
     phase_build()
     kernels = phase_kernels()
     card = f"{name} ({smi})"
     paths = {"serve": phase_serve(card), "train": phase_train(card), "mel_ab": phase_mel_ab(card),
-             "gan": phase_gan(card, "cfg/birds_3stages.yml"), "joint": phase_gan(card, "cfg/birds_joint_ft.yml")}
+             "gan": phase_gan(card, "cfg/birds_3stages.yml"), "joint": phase_gan(card, "cfg/birds_joint_ft.yml"),
+             "loop": phase_loop(card)}
     rows = []
     for kname, (_, src, replaces) in KERNELS.items():
         by_path = {path: counts[kname] for path, counts in paths.items()}

@@ -8,8 +8,18 @@
   → crop/pad to MAX_FRAMES, valid-frame mask
   → per-utterance mean/var normalization over the valid frames
 
-The log-mel kernel takes every frame geometry, so unlike the TPU path there
-is no probe and no fallback to a second formulation.
+There is no probe and no fallback to a second formulation, unlike the TPU
+path. The log-mel kernel's FFT branch (n_fft a power of two, 128..2048)
+stages each tile's span of samples, twice (double buffered), in one block's
+shared memory beside its constant table, FFT buffers and output rows; the
+span grows with the hop (a tile of n_fft 2048 is 4 frames: 3 hops and a
+window). A geometry whose need passes the card's per-block shared-memory
+opt-in (227 KB on an H100; n_fft 2048 from a hop of about 4 600 samples)
+raises, and the error names the geometry, the bytes it needed and the
+card's limit. No cfg comes near it.
+
+    feats, mask = extract_features(wav, p, wav_len)          # [B, F, D], [B, F]
+    batch = featurize({"wav", "wav_len", ...}, p)             # the same in a batch dict
 """
 
 from __future__ import annotations
@@ -188,3 +198,12 @@ def extract_features(
     if p.normalize == "utterance":
         feats = normalize_features(feats, mask)
     return feats, mask
+
+
+def featurize(raw: dict, p: FrontendParams, device: str | torch.device = "cuda") -> dict:
+    """A wav batch ``{"wav" [B, n], "wav_len" [B], ...}`` → the same batch
+    with ``feats`` / ``feat_mask`` computed on ``device`` in place of the
+    wav (for the encoder: ``{"feats", "feat_mask", "teacher", "class_id"}``)."""
+    feats, mask = extract_features(raw["wav"], p, wav_len=raw["wav_len"], device=device)
+    rest = {k: v for k, v in raw.items() if k not in ("wav", "wav_len")}
+    return {"feats": feats, "feat_mask": mask, **rest}

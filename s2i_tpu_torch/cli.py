@@ -1,58 +1,42 @@
-"""Training loops of the port, the counterpart of the training half of
-``s2i_tpu/cli.py``:
+"""Training and sampling loops of the port, the counterpart of the training
+half of ``s2i_tpu/cli.py``:
 
     from s2i_tpu_torch import config, cli
     cfg = config.cfg_from_file("cfg/pretrain_encoder_birds.yml")
     cli.run_encoder_pretrain(cfg, steps=100)            # on the card
     cfg = config.cfg_from_file("cfg/birds_3stages.yml")  # or birds_joint_ft.yml
-    cli.run_gan_training(cfg, steps=100)
+    cli.run_gan_training(cfg, steps=100, run_dir=run)    # train.loop.GanTrainer
+    cli.run_gan_training(cfg, steps=200, run_dir=run)    # resumes at step 100
+    cli.run_sampling(cfg)                                # TRAIN.NET_G's run → PNG tree
 
-Batches come from the synthetic corpora (``DATASET_NAME: synthetic``) or,
-for real data, from the caller: encoder batches as wavs ``{"wav",
-"wav_len", "teacher", "class_id"}``, GAN batches ``{"images",
-"embedding", "class_id"}`` (plus ``"wav"``, ``"wav_len"`` and ``"teacher"``
-in joint mode). ``featurize`` turns wavs into log-mel features on the device
-(K1 on the card). The StackGAN loaders, checkpoints, resume, TensorBoard
-and sample grids are not ported yet (``ROADMAP.md`` items 11-12).
+Both training loops checkpoint the full state (``<run_dir>/ckpt``, with the
+batch stream's place in ``train_progress.json``) and resume when given an
+existing ``run_dir``; epochs count in total. Batches come from the synthetic
+corpora (``DATASET_NAME: synthetic``) or, for real data, from the caller:
+encoder batches as wavs ``{"wav", "wav_len", "teacher", "class_id"}``, GAN
+batches ``{"images", "embedding", "class_id"}`` (plus ``"wav"``,
+``"wav_len"`` and ``"teacher"`` in joint mode). ``featurize`` turns wavs into
+log-mel features on the device (K1 on the card). The StackGAN loaders and
+the TensorBoard mirror are not ported (``ROADMAP.md`` Queue 1).
 """
 
 from __future__ import annotations
 
 import datetime
 import json
-import math
 import os
 import time
-from typing import Any, Callable, Iterable
+from typing import Callable, Iterable
 
 import numpy as np
 import torch
 
-from s2i_tpu_torch.audio.frontend import FrontendParams, extract_features, frontend_params_from_cfg
+from s2i_tpu_torch.audio.frontend import featurize, frontend_params_from_cfg
 from s2i_tpu_torch.data import SyntheticGanDataset, SyntheticSpeechDataset, synthetic_wavs
 from s2i_tpu_torch.device import resolve_device
-from s2i_tpu_torch.train import gan
 from s2i_tpu_torch.train.encoder import encoder_train_step, init_encoder_state
-
-
-class ScalarLogger:
-    """JSONL scalars, one line per ``log`` call: ``{"step", "time", **scalars}``
-    in ``<run_dir>/scalars.jsonl`` (the JSONL half of the JAX package's
-    ``utils/logging.py::ScalarLogger``). Non-finite values are written as
-    strings: bare NaN/Infinity tokens are not valid JSON."""
-
-    def __init__(self, run_dir: str):
-        os.makedirs(run_dir, exist_ok=True)
-        self._f = open(os.path.join(run_dir, "scalars.jsonl"), "a", buffering=1)
-
-    def log(self, step: int, scalars: dict[str, Any]) -> None:
-        rec = {"step": int(step), "time": time.time()}
-        rec.update({k: (f if math.isfinite(f) else str(f))
-                    for k, v in scalars.items() for f in (float(v),)})
-        self._f.write(json.dumps(rec) + "\n")
-
-    def close(self) -> None:
-        self._f.close()
+from s2i_tpu_torch.train.loop import GanTrainer
+from s2i_tpu_torch.utils import CheckpointManager, ScalarLogger
 
 
 def make_run_dir(cfg, tag: str) -> str:
@@ -61,15 +45,6 @@ def make_run_dir(cfg, tag: str) -> str:
     run_dir = os.path.join(cfg.OUTPUT_DIR, f"{cfg.DATASET_NAME}_{cfg.CONFIG_NAME}_{tag}_{stamp}")
     os.makedirs(run_dir, exist_ok=True)
     return run_dir
-
-
-def featurize(raw: dict, p: FrontendParams, device: str | torch.device = "cuda") -> dict:
-    """A wav batch ``{"wav" [B, n], "wav_len" [B], ...}`` → the same batch
-    with ``feats`` / ``feat_mask`` computed on ``device`` in place of the
-    wav (for the encoder: ``{"feats", "feat_mask", "teacher", "class_id"}``)."""
-    feats, mask = extract_features(raw["wav"], p, wav_len=raw["wav_len"], device=device)
-    rest = {k: v for k, v in raw.items() if k not in ("wav", "wav_len")}
-    return {"feats": feats, "feat_mask": mask, **rest}
 
 
 def speech_batch_factory(
@@ -108,23 +83,52 @@ def run_encoder_pretrain(
     run_dir: str | None = None,
     wav_batches: Callable[[int], Iterable[dict]] | None = None,
 ) -> dict:
-    """Distillation pretraining of the speech encoder for ``epochs`` (default
-    ``ENCODER.EPOCHS``) or until ``steps`` steps, whichever ends first, from
-    weights seeded with ``cfg.SEED``. Every ``ENCODER.LOG_EVERY`` steps it
-    appends the step's metrics and ``examples_per_sec`` to
-    ``<run_dir>/scalars.jsonl``. Returns the last step's metrics."""
+    """Distillation pretraining of the speech encoder until ``epochs`` TOTAL
+    epochs (default ``ENCODER.EPOCHS``) are done or the global step reaches
+    ``steps``, from weights seeded with ``cfg.SEED``. An existing ``run_dir``
+    resumes: the latest checkpoint of ``<run_dir>/ckpt`` is restored and the
+    loop continues at the epoch its progress file records (a mid-epoch
+    snapshot replays its epoch from the start, as the JAX loop does). Every
+    ``ENCODER.LOG_EVERY`` steps it appends the step's metrics and
+    ``examples_per_sec`` to ``<run_dir>/scalars.jsonl``; it checkpoints every
+    ``ENCODER.SNAPSHOT_INTERVAL`` steps and at each epoch's end. Returns the
+    last step's metrics."""
     dev = resolve_device(device)
     run_dir = run_dir or make_run_dir(cfg, "encoder")
+    prog_path = os.path.join(run_dir, "train_progress.json")
     state = init_encoder_state(cfg, device=dev)
+    ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"))
+    start_epoch = 0
+    if ckpt.restore_latest(state) is not None:
+        try:
+            with open(prog_path) as f:
+                start_epoch = int(json.load(f).get("epoch", 0))
+        except (OSError, ValueError):
+            start_epoch = 0  # no progress file: replay from the first epoch
+        print(f"resumed from step {state.step} (epoch {start_epoch})")
     factory = speech_batch_factory(cfg, dev, wav_batches)
     logger = ScalarLogger(run_dir)
     log_every = int(cfg.ENCODER.LOG_EVERY)
+    snapshot = int(cfg.ENCODER.SNAPSHOT_INTERVAL)
+    done = lambda: steps is not None and state.step >= steps  # noqa: E731
+
+    def save(epoch: int) -> None:
+        # the epoch to resume at: the current one for a mid-epoch snapshot,
+        # the next one at an epoch's end (tmp + rename: never torn)
+        if ckpt.save(state.step, state):
+            tmp = prog_path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump({"epoch": epoch, "step": state.step}, f)
+            os.replace(tmp, prog_path)
+
     mets: dict = {}
     t0, seen = time.time(), 0
     try:
-        for epoch in range(epochs or int(cfg.ENCODER.EPOCHS)):
+        for epoch in range(start_epoch, epochs or int(cfg.ENCODER.EPOCHS)):
+            if done():
+                break
             for batch in factory(epoch):
-                if steps is not None and state.step >= steps:
+                if done():
                     break
                 seen += batch["feats"].shape[0]
                 mets = encoder_train_step(state, batch)
@@ -134,8 +138,13 @@ def run_encoder_pretrain(
                     scalars["examples_per_sec"] = seen / max(dt, 1e-9)
                     logger.log(state.step, scalars)
                     t0, seen = time.time(), 0
-            if steps is not None and state.step >= steps:
-                break
+                if snapshot and state.step % snapshot == 0:
+                    save(epoch)
+            else:
+                save(epoch + 1)
+                continue
+            save(epoch)  # stopped at `steps` inside the epoch: a resume replays it
+            break
     finally:
         logger.close()
     print(f"run dir: {run_dir}")
@@ -178,26 +187,21 @@ def synthetic_gan_batches(cfg) -> Callable[[int], Iterable[dict]]:
 
 
 def gan_batch_factory(
-    cfg,
-    device: str | torch.device = "cuda",
-    batches: Callable[[int], Iterable[dict]] | None = None,
+    cfg, batches: Callable[[int], Iterable[dict]] | None = None
 ) -> Callable[[int], Iterable[dict]]:
-    """epoch → GAN batches: ``batches(epoch)`` when given, else the synthetic
-    corpus (``DATASET_NAME: synthetic``). In joint mode (``TRAIN.JOINT_FT``)
-    each batch carries its captions' wavs, featurized here on ``device`` (K1
-    on the card), as the JAX package's real-data joint loader does."""
-    if batches is None and cfg.DATASET_NAME == "synthetic":
-        batches = synthetic_gan_batches(cfg)
-    elif batches is None:
-        raise NotImplementedError(
-            f"DATASET_NAME={cfg.DATASET_NAME!r}: the StackGAN loader is not ported yet; "
-            "pass batches(epoch) yielding {'images', 'embedding', 'class_id'} batches "
-            "(+ 'wav', 'wav_len', 'teacher' with TRAIN.JOINT_FT)"
-        )
-    if not bool(cfg.TRAIN.JOINT_FT):
+    """epoch → host GAN batches: ``batches(epoch)`` when given, else the
+    synthetic corpus (``DATASET_NAME: synthetic``). Joint-mode batches carry
+    their captions' wavs, which the trainer featurizes on the device (K1 on
+    the card) as it takes each batch."""
+    if batches is not None:
         return batches
-    p = frontend_params_from_cfg(cfg.AUDIO)
-    return lambda epoch: (featurize(b, p, device) for b in batches(epoch))
+    if cfg.DATASET_NAME == "synthetic":
+        return synthetic_gan_batches(cfg)
+    raise NotImplementedError(
+        f"DATASET_NAME={cfg.DATASET_NAME!r}: the StackGAN loader is not ported yet; "
+        "pass batches(epoch) yielding {'images', 'embedding', 'class_id'} batches "
+        "(+ 'wav', 'wav_len', 'teacher' with TRAIN.JOINT_FT)"
+    )
 
 
 def run_gan_training(
@@ -210,34 +214,45 @@ def run_gan_training(
     log_every: int = 20,
 ) -> dict:
     """GAN training (frozen embeddings, or the joint encoder + GAN finetune
-    when ``TRAIN.JOINT_FT``) for ``epochs`` (default ``TRAIN.MAX_EPOCH``) or
-    until ``steps`` steps, whichever ends first, from weights seeded with
-    ``cfg.SEED``. Every ``log_every`` steps it appends the step's metrics and
-    ``images_per_sec`` to ``<run_dir>/scalars.jsonl``. Returns the last
-    step's metrics."""
+    when ``TRAIN.JOINT_FT``) through :class:`train.loop.GanTrainer` until
+    ``epochs`` TOTAL epochs (default ``TRAIN.MAX_EPOCH``) are done or the
+    global step reaches ``steps``, from weights seeded with ``cfg.SEED``
+    (or ``TRAIN.NET_G`` / ``TRAIN.NET_E``'s). An existing ``run_dir``
+    resumes where its latest checkpoint stopped. Every ``log_every`` steps it
+    appends the step's metrics and ``images_per_sec`` to
+    ``<run_dir>/scalars.jsonl``. Returns the last step's metrics."""
     dev = resolve_device(device)
     run_dir = run_dir or make_run_dir(cfg, "train")
-    state = gan.init_state(cfg, device=dev)
-    factory = gan_batch_factory(cfg, dev, batches)
-    logger = ScalarLogger(run_dir)
-    mets: dict = {}
-    done = lambda: steps is not None and state.step >= steps  # noqa: E731
-    t0, seen = time.time(), 0
+    trainer = GanTrainer(cfg, run_dir, gan_batch_factory(cfg, batches), log_every=log_every, device=dev)
     try:
-        for epoch in range(epochs or int(cfg.TRAIN.MAX_EPOCH)):
-            if done():
-                break
-            for batch in factory(epoch):  # checked after each step: no batch is made in vain
-                seen += len(batch["images"][0])
-                mets = gan.train_step(state, batch)
-                if log_every and state.step % log_every == 0:
-                    scalars = {k: float(v) for k, v in mets.items()}
-                    scalars["images_per_sec"] = seen / max(time.time() - t0, 1e-9)
-                    logger.log(state.step, scalars)
-                    t0, seen = time.time(), 0
-                if done():
-                    break
+        mets = trainer.train(epochs, steps)
     finally:
-        logger.close()
+        trainer.close()
     print(f"run dir: {run_dir}")
-    return {k: float(v) for k, v in mets.items()}
+    return mets
+
+
+def run_sampling(cfg, device: str | torch.device = "cuda") -> str:
+    """The evaluation path: a PNG per test embedding (``<run dir>/samples``),
+    ``EVAL.NUM_SAMPLES_PER_EMB`` each, from the G of ``TRAIN.NET_G``'s run
+    (its EMA with BN re-estimated when ``EVAL.EMA_BN_RECALC`` > 0; the seeded
+    init without ``TRAIN.NET_G``). The synthetic corpus's embeddings (seed
+    ``SEED + 999``) stand in for the test split until the loaders are
+    ported. Returns the samples' directory."""
+    if cfg.DATASET_NAME != "synthetic":
+        raise NotImplementedError(
+            f"DATASET_NAME={cfg.DATASET_NAME!r}: the StackGAN test split loader is not ported yet"
+        )
+    dev = resolve_device(device)
+    run_dir = make_run_dir(cfg, "sample")
+    emb = SyntheticGanDataset(branch_num=int(cfg.TREE.BRANCH_NUM), base_size=int(cfg.TREE.BASE_SIZE),
+                              emb_dim=int(cfg.TEXT.DIMENSION), seed=int(cfg.SEED) + 999).embeddings
+    trainer = GanTrainer(cfg, run_dir, gan_batch_factory(cfg), device=dev)
+    out_dir = os.path.join(run_dir, "samples")
+    try:
+        trainer.sample_to_dir(emb, out_dir, samples_per_emb=int(cfg.EVAL.NUM_SAMPLES_PER_EMB),
+                              seed=int(cfg.SEED))
+    finally:
+        trainer.close()
+    print(f"samples: {out_dir}")
+    return out_dir

@@ -52,7 +52,8 @@
 // power spectrum stays in shared memory for the dense mel projection.
 //
 // A geometry past the card's per-block shared memory returns
-// cudaErrorInvalidValue and the wrapper raises.
+// cudaErrorInvalidValue; the wrapper asks s2i_mel_fused_smem first and
+// raises with the geometry, the bytes it needs and the card's limit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,6 +71,19 @@ __host__ __device__ constexpr int fft_tile(int log2m) { return 2 * mel::warps(lo
 // Shared bytes of one staged wav span of a tile (+3 floats of alignment shift).
 __host__ __device__ inline int span_bytes(int log2m, int hop, int win) {
   return mel::round16(4 * ((fft_tile(log2m) - 1) * hop + win + 3));
+}
+
+// Dynamic shared bytes of an FFT-branch block: the table, two span slots,
+// the warps' FFT buffers, the tile's power spectra and log-mel rows.
+__host__ inline size_t fft_smem(int log2m, int table_bytes, int hop, int win, int n_mels) {
+  return (size_t)table_bytes + 2 * (size_t)span_bytes(log2m, hop, win) + mel::buffer_bytes(log2m) +
+         mel::tile_bytes(fft_tile(log2m), log2m, n_mels);
+}
+
+// Dynamic shared bytes of a DFT-branch block: the tile's span and its power spectra.
+__host__ inline size_t dft_smem(int hop, int win, int n_bins) {
+  const size_t span = (size_t)(kTileDft - 1) * hop + win;
+  return sizeof(float) * (((span + 3) & ~(size_t)3) + (size_t)kTileDft * n_bins);
 }
 
 // Issues the copies of a tile's span: `span` samples from w, of which
@@ -151,8 +165,7 @@ cudaError_t launch_fft(const float* wav, int batch, int n_samples, const char* t
                        cudaStream_t stream) {
   const void* kernel = (const void*)mel_fused_fft_kernel<kLog2M>;
   const int threads = 32 * mel::warps(kLog2M);
-  const size_t smem = (size_t)table_bytes + 2 * (size_t)span_bytes(kLog2M, hop, win) + mel::buffer_bytes(kLog2M) +
-                      mel::tile_bytes(fft_tile(kLog2M), kLog2M, n_mels);
+  const size_t smem = fft_smem(kLog2M, table_bytes, hop, win, n_mels);
   cudaError_t err = mel::set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int tiles_per_utt = (n_frames + fft_tile(kLog2M) - 1) / fft_tile(kLog2M);
@@ -257,9 +270,7 @@ cudaError_t launch_dft(const float* wav, int batch, int n_samples,
                        const float* cos_t, const float* sin_t, const float* mel_t,
                        float* out, int n_frames, int hop, int win, int n_bins,
                        int n_mels, float log_offset, cudaStream_t stream) {
-  const int span = (kTileDft - 1) * hop + win;
-  const size_t smem =
-      sizeof(float) * ((size_t)((span + 3) & ~3) + (size_t)kTileDft * n_bins);
+  const size_t smem = dft_smem(hop, win, n_bins);
   cudaError_t err = mel::set_smem((const void*)mel_fused_dft_kernel<kVec4>, smem);
   if (err != cudaSuccess) return err;
   int threads = ((n_bins + 31) / 32) * 32;
@@ -317,6 +328,21 @@ extern "C" int s2i_mel_fused_dft(const float* wav, int batch, int n_samples,
                             n_frames, hop, win, n_bins, n_mels, log_offset, s);
   return launch_dft<false>(wav, batch, n_samples, cos_t, sin_t, mel_t, out,
                            n_frames, hop, win, n_bins, n_mels, log_offset, s);
+}
+
+// The dynamic shared bytes a launch of this geometry asks for (the FFT
+// branch for an n_fft it takes, with its table_bytes; else the DFT branch,
+// win being its tables' padded rows) and the current device's per-block
+// opt-in limit, for the wrapper to check before it launches.
+extern "C" int s2i_mel_fused_smem(int table_bytes, int hop, int win, int n_fft, int n_bins,
+                                  int n_mels, long long* need, int* limit) {
+  if (hop <= 0 || win <= 0 || n_bins <= 0 || n_mels <= 0 || table_bytes < 0) return cudaErrorInvalidValue;
+  const int log2m = mel::fft_log2m(n_fft);
+  *need = (long long)(log2m >= 0 ? fft_smem(log2m, table_bytes, hop, win, n_mels) : dft_smem(hop, win, n_bins));
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return (int)err;
 }
 
 extern "C" const char* s2i_mel_fused_error_string(int err) {

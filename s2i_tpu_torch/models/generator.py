@@ -86,6 +86,7 @@ class GNet(nn.Module):
         if not 1 <= branch_num <= 3:
             raise ValueError(f"branch_num must be 1..3, got {branch_num}")
         self.branch_num = branch_num
+        self.z_dim = z_dim
         self.ca_net = CANet(t_dim, c_dim)
         self.h_net1 = InitStageG(gf_dim * 16, z_dim, c_dim)
         self.img_net1 = ToRGB(gf_dim)

@@ -177,9 +177,30 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_float, ctypes.c_void_p,
         ]
         lib.s2i_mel_fused_dft.restype = ctypes.c_int
+        lib.s2i_mel_fused_smem.argtypes = [ctypes.c_int] * 6 + [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
+        lib.s2i_mel_fused_smem.restype = ctypes.c_int
         lib.s2i_mel_fused_error_string.argtypes = [ctypes.c_int]
         lib.s2i_mel_fused_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _check_smem(lib: ctypes.CDLL, p, branch: str, table_bytes: int, win: int) -> None:
+    """Raise, naming the geometry, when a block of K1 at ``p`` needs more
+    shared memory than the card lets a block opt in to (the kernel's span
+    slots grow with the hop). ``win``: the window, or the DFT tables' padded
+    rows."""
+    need, limit = ctypes.c_longlong(), ctypes.c_int()
+    err = lib.s2i_mel_fused_smem(table_bytes, p.hop_length, win, p.n_fft, p.n_bins, p.n_mels,
+                                 ctypes.byref(need), ctypes.byref(limit))
+    if err:
+        raise RuntimeError(f"mel_fused kernel ({branch}): {lib.s2i_mel_fused_error_string(err).decode()}")
+    if need.value > limit.value:
+        raise RuntimeError(
+            f"mel_fused kernel ({branch}): n_fft {p.n_fft}, win_length {p.win_length}, hop_length "
+            f"{p.hop_length}, n_mels {p.n_mels} needs {need.value} bytes of shared memory per block; "
+            f"this card lets a block have {limit.value}"
+        )
 
 
 def logmel(wav: torch.Tensor, p, n_frames: int) -> torch.Tensor:
@@ -203,6 +224,7 @@ def logmel(wav: torch.Tensor, p, n_frames: int) -> torch.Tensor:
     branch = kernel_branch(p)
     if branch == "fft":
         table = _fft_table(p, wav.device)
+        _check_smem(lib, p, branch, table.numel(), p.win_length)
         err = lib.s2i_mel_fused_fft(
             wav.data_ptr(), wav.shape[0], wav.shape[1], table.data_ptr(), table.numel(),
             out.data_ptr(), n_frames, p.hop_length, p.win_length, p.n_fft, p.n_mels,
@@ -210,6 +232,7 @@ def logmel(wav: torch.Tensor, p, n_frames: int) -> torch.Tensor:
         )
     else:
         cos, sin, mel_t = _tables(p, wav.device)
+        _check_smem(lib, p, branch, 0, cos.shape[0])
         err = lib.s2i_mel_fused_dft(
             wav.data_ptr(), wav.shape[0], wav.shape[1],
             cos.data_ptr(), sin.data_ptr(), mel_t.data_ptr(), out.data_ptr(),

@@ -4,6 +4,7 @@
     wav → log-mel frontend → SpeechEncoder → CA (μ) → GNet → RGB
 
     pipe = SpeechToImage(cfg, enc_sd, g_sd)          # state_dicts (bridge.py)
+    pipe = SpeechToImage.from_checkpoints(cfg, enc_ckpt_dir, gan_ckpt_dir)  # what the port trained
     images = pipe.generate(wavs, wav_lens, seed=0)   # [B, S, S, 3]
 """
 
@@ -16,6 +17,7 @@ from s2i_tpu_torch.audio.frontend import extract_features, frontend_params_from_
 from s2i_tpu_torch.device import resolve_device
 from s2i_tpu_torch.models.encoder import SpeechEncoder
 from s2i_tpu_torch.models.generator import GNet
+from s2i_tpu_torch.utils.checkpoint import CheckpointManager
 
 
 def build_encoder(cfg, joint: bool = False) -> SpeechEncoder:
@@ -78,6 +80,39 @@ class SpeechToImage:
         _load(self.g, g_state_dict)
         self.encoder.to(self.device).eval()
         self.g.to(self.device).eval()
+
+    @classmethod
+    def from_checkpoints(cls, cfg, encoder_ckpt: str | None, gan_ckpt: str, use_ema: bool = True,
+                         device: str | torch.device = "cuda") -> "SpeechToImage":
+        """The pipeline of the port's checkpoint directories (``<run>/ckpt``
+        of ``cli.run_encoder_pretrain`` and ``cli.run_gan_training``; the
+        latest checkpoint of each), served as the JAX package serves its
+        own: G's EMA weights when ``use_ema`` and the run kept an EMA, with
+        G's running statistics. A joint checkpoint (``TRAIN.JOINT_FT``)
+        carries its finetuned encoder, which is the one served (``encoder_ckpt``
+        is not read and may be None); a frozen one needs ``encoder_ckpt``."""
+        joint = bool(cfg.TRAIN.JOINT_FT)
+        if not joint and not encoder_ckpt:
+            raise ValueError("encoder_ckpt is required unless cfg.TRAIN.JOINT_FT is on "
+                             "(joint GAN checkpoints embed the finetuned encoder)")
+        restored = CheckpointManager(gan_ckpt).restore_latest_raw()
+        if restored is None:
+            raise FileNotFoundError(f"no GAN checkpoint in {gan_ckpt}")
+        gan_sd = restored[0]
+        if (gan_sd["enc"] is not None) != joint:
+            raise ValueError(f"{gan_ckpt} holds a {'joint' if gan_sd['enc'] is not None else 'frozen'} "
+                             f"GAN state; cfg.TRAIN.JOINT_FT is {joint}")
+        g_sd = dict(gan_sd["g"])
+        if use_ema:
+            g_sd.update(gan_sd["ema"])
+        if joint:
+            enc_sd = gan_sd["enc"]
+        else:
+            restored = CheckpointManager(encoder_ckpt).restore_latest_raw()
+            if restored is None:
+                raise FileNotFoundError(f"no encoder checkpoint in {encoder_ckpt}")
+            enc_sd = restored[0]["model"]
+        return cls(cfg, enc_sd, g_sd, joint=joint, device=device)
 
     def generate(self, wavs, wav_lens=None, seed: int = 0, stage: int = -1,
                  output_dtype: str = "float32", z=None) -> np.ndarray:

@@ -25,6 +25,7 @@ from s2i_tpu_torch.models.encoder import BiGRU, SpeechEncoder
 from s2i_tpu_torch.models.layers import BatchNorm
 from s2i_tpu_torch.pipeline import build_encoder
 from s2i_tpu_torch.train.losses import distillation_loss
+from s2i_tpu_torch.utils.checkpoint import load_optimizer
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
@@ -64,6 +65,18 @@ class EncoderTrainState:
     opt: torch.optim.Adam
     ce_coeff: float
     step: int = 0
+
+    def state_dict(self) -> dict:
+        """The model's parameters and buffers (``"model"``: the encoder's
+        state_dict, class head included), Adam's state and the step: all an
+        exact resume needs, as the step draws no noise."""
+        return {"step": self.step, "model": self.model.state_dict(), "opt": self.opt.state_dict()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Load what :meth:`state_dict` returned (from any device)."""
+        self.model.load_state_dict(sd["model"])
+        load_optimizer(self.opt, sd["opt"], "encoder Adam")
+        self.step = int(sd["step"])
 
 
 def init_encoder_state(cfg, device: str | torch.device = "cuda") -> EncoderTrainState:

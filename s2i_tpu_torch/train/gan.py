@@ -25,10 +25,17 @@ they say, in float32 whatever ``DTYPE.COMPUTE`` says.
 
     state = init_state(cfg)                      # on the card, seeded
     metrics = train_step(state, batch)           # {"d_loss", "g_loss", ...}
+    ckpt = state.state_dict()                    # load_state_dict(ckpt) resumes
+
+Evaluation (forward only): ``bn_recalc`` re-estimates G's BatchNorm
+statistics under the EMA weights, ``sampling_generator`` is the G to sample
+from and ``sample`` draws images from it with noise keyed by each example's
+global index.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable
 
@@ -44,6 +51,7 @@ from s2i_tpu_torch.models.layers import BatchNorm
 from s2i_tpu_torch.pipeline import build_encoder, build_generator
 from s2i_tpu_torch.train import encoder as encoder_train
 from s2i_tpu_torch.train import losses
+from s2i_tpu_torch.utils.checkpoint import load_optimizer
 
 
 @dataclasses.dataclass
@@ -121,6 +129,15 @@ class StepConfig:
                    int(cfg.TRAIN.EMA_WARMUP), str(cfg.TRAIN.WRONG_PAIR).lower(), int(cfg.SEED))
 
 
+def g_opt_names(models: GanModels) -> list[str]:
+    """The parameters of G's optimizer group, in its order: G's (CA
+    included), then in joint mode the encoder's."""
+    names = [f"g.{n}" for n, _ in models.g.named_parameters()]
+    if models.encoder is not None:
+        names += [f"enc.{n}" for n, _ in models.encoder.named_parameters()]
+    return names
+
+
 @dataclasses.dataclass
 class GanTrainState:
     models: GanModels
@@ -134,13 +151,60 @@ class GanTrainState:
     def device(self) -> torch.device:
         return next(self.models.g.parameters()).device
 
+    def state_dict(self) -> dict:
+        """Everything an exact resume needs: each module's parameters and
+        buffers (G with CA, every D, the joint encoder), every optimizer's
+        state, the EMA copy and the step. Nothing else is: the step noise is
+        keyed by (SEED, step) (:func:`step_noise`) and the synthetic batch
+        stream by (SEED, epoch). ``g_opt_names`` records the order of G's
+        optimizer group, which the optimizer's state is indexed by."""
+        m = self.models
+        return {
+            "step": self.step,
+            "g": m.g.state_dict(),
+            "ds": [d.state_dict() for d in m.ds],
+            "enc": None if m.encoder is None else m.encoder.state_dict(),
+            "g_opt": self.g_opt.state_dict(),
+            "g_opt_names": g_opt_names(m),
+            "d_opts": [o.state_dict() for o in self.d_opts],
+            "ema": dict(self.ema),
+        }
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Load what :meth:`state_dict` returned (from any device) into this
+        state's tensors; raises ValueError where the two states differ in
+        kind (joint or not, number of Ds, EMA or not) or in layout."""
+        m = self.models
+        if (sd["enc"] is None) != (m.encoder is None) or len(sd["ds"]) != len(m.ds):
+            raise ValueError(
+                f"checkpoint of a {'frozen' if sd['enc'] is None else 'joint'} state with "
+                f"{len(sd['ds'])} Ds, this state is {'frozen' if m.encoder is None else 'joint'} "
+                f"with {len(m.ds)}"
+            )
+        if list(sd["g_opt_names"]) != g_opt_names(m):
+            raise ValueError("the checkpoint's G optimizer group holds other parameters, or another order")
+        if sd["ema"].keys() != self.ema.keys():
+            raise ValueError("the checkpoint's EMA covers other parameters (TRAIN.EMA_G on one side only?)")
+        m.g.load_state_dict(sd["g"])
+        for d, dsd in zip(m.ds, sd["ds"]):
+            d.load_state_dict(dsd)
+        if m.encoder is not None:
+            m.encoder.load_state_dict(sd["enc"])
+        load_optimizer(self.g_opt, sd["g_opt"], "g_opt")
+        for i, (opt, osd) in enumerate(zip(self.d_opts, sd["d_opts"])):
+            load_optimizer(opt, osd, f"d_opts[{i}]")
+        with torch.no_grad():
+            for name, t in self.ema.items():
+                t.copy_(sd["ema"][name])
+        self.step = int(sd["step"])
+
 
 def init_state(cfg, device: str | torch.device = "cuda") -> GanTrainState:
     """Models of ``cfg`` on ``device`` in train mode with weights drawn from
     a ``torch.Generator`` seeded with ``cfg.SEED`` (the same weights on every
     device), fresh optimizers and the EMA copy. In joint mode
-    (``TRAIN.JOINT_FT``) the encoder starts from the seeded init too
-    (``TRAIN.NET_E`` warm starts need checkpoints, not ported yet)."""
+    (``TRAIN.JOINT_FT``) the encoder starts from the seeded init too;
+    ``train.loop.GanTrainer`` grafts a pretrained one (``TRAIN.NET_E``)."""
     dev = resolve_device(device)
     joint = bool(cfg.TRAIN.JOINT_FT)
     models = build_models(cfg, joint)
@@ -356,3 +420,64 @@ def train_step(state: GanTrainState, batch: dict, z=None, eps=None,
     mark("g_phase")
     state.step += 1
     return mets
+
+
+def sampling_generator(state: GanTrainState) -> GNet:
+    """A copy of G (CA included) in eval mode to sample from: the EMA
+    weights when the state keeps an EMA (``TRAIN.EMA_G`` > 0), else G's own,
+    with G's running statistics. The state's G is left as it is."""
+    g = copy.deepcopy(state.models.g).requires_grad_(False)
+    if state.ema:
+        with torch.no_grad():
+            for name, p in g.named_parameters():
+                p.copy_(state.ema[name])
+    return g.eval()
+
+
+@torch.no_grad()
+def bn_recalc(state: GanTrainState, embeddings, batches: int, batch_size: int, seed: int = 0,
+              idx=None, z=None) -> dict[str, torch.Tensor]:
+    """G's BatchNorm running statistics re-estimated under the EMA weights,
+    the counterpart of ``make_bn_recalc_fn``: ``batches`` train-mode
+    forwards of :func:`sampling_generator`'s copy, starting from G's running
+    statistics, each on CA's mean (c = μ) of ``batch_size`` random rows of the
+    ``embeddings`` pool with fresh z. Returns the copy's buffers by name
+    (``state_dict`` keys of G); the state's G is left as it is.
+
+    The draws come from a generator on the state's device seeded with
+    ``seed``, or from ``idx`` [batches, batch_size] (rows of the pool) and
+    ``z`` [batches, batch_size, Z_DIM] when given."""
+    dev = state.device
+    g = sampling_generator(state).train()
+    pool = torch.as_tensor(embeddings, device=dev).float()
+    if idx is None or z is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        idx = torch.randint(0, pool.shape[0], (batches, batch_size), generator=gen, device=dev)
+        z = torch.randn(batches, batch_size, g.z_dim, generator=gen, device=dev)
+    idx = torch.as_tensor(idx, device=dev).long()
+    z = torch.as_tensor(z, device=dev).float()
+    for rows, zb in zip(idx, z):
+        g(zb, g.ca_net(pool[rows])[0])
+    return dict(g.named_buffers())
+
+
+def example_noise(seed: int, indices, dim: int) -> torch.Tensor:
+    """Sampling noise [len(indices), dim] on the CPU: row j from a generator
+    seeded with (seed, indices[j]), so an example's noise depends on its
+    global index only, never on the batch it lands in."""
+    return torch.stack([torch.randn(dim, generator=torch.Generator().manual_seed((seed << 32) + int(i)))
+                        for i in indices])
+
+
+@torch.no_grad()
+def sample(g: GNet, embeddings, seed: int = 0, offset: int = 0, z=None) -> list[torch.Tensor]:
+    """Images of every stage, NCHW in [-1, 1], of eval-mode ``g`` (e.g.
+    :func:`sampling_generator`'s) for ``embeddings`` [B, TEXT.DIMENSION]
+    through CA's mean (c = μ), the counterpart of ``make_sample_fn``.
+    Example j's noise is :func:`example_noise` of global index
+    ``offset + j``; ``z`` [B, Z_DIM] replaces it."""
+    dev = next(g.parameters()).device
+    emb = torch.as_tensor(embeddings, device=dev).float()
+    if z is None:
+        z = example_noise(seed, range(offset, offset + emb.shape[0]), g.z_dim)
+    return g(torch.as_tensor(z).float().to(dev), g.ca_net(emb)[0])

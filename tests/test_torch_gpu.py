@@ -15,16 +15,20 @@ dh0 carry the sum over T reverse steps). One GAN step, card vs CPU: losses
 1e-4 relative, gradients 1e-3 of each tensor's largest magnitude (BN batch
 statistics over 4 examples), BN running statistics 1e-4 absolute."""
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
 
-from s2i_tpu_torch import config
+from s2i_tpu_torch import cli, config
 from s2i_tpu_torch.audio import filters
 from s2i_tpu_torch.audio import frontend as tf
 from s2i_tpu_torch.ops import gru_kernel, mel_kernel
 from s2i_tpu_torch.pipeline import SpeechToImage, build_encoder, build_generator
-from s2i_tpu_torch.train import gan
+from s2i_tpu_torch.train import gan, loop
+from s2i_tpu_torch.utils import checkpoint
 
 pytestmark = pytest.mark.gpu
 
@@ -177,6 +181,22 @@ def test_logmel_kernels_raise_past_shared_memory(card):
     before = mel_kernel.logmel.launches
     with pytest.raises(RuntimeError, match="mel_fused kernel"):
         mel_kernel.logmel(wav, p, mel_kernel.num_frames(wav.shape[1], p))
+    assert mel_kernel.logmel.launches == before
+
+
+def test_extract_features_names_a_geometry_past_shared_memory(card):
+    """n_fft 2048 at hop 4800: a tile's two staged spans (3 hops and a
+    window each) beside the 48 kB table pass a block's 227 KB, and the
+    frontend raises with the geometry and the bytes it needed, launching
+    nothing (no fallback to another formulation)."""
+    p = tf.FrontendParams(win_length=2048, hop_length=4800, n_fft=2048, max_frames=8)
+    before = mel_kernel.logmel.launches
+    with pytest.raises(RuntimeError) as err:
+        tf.extract_features(np.zeros((1, 40000), np.float32), p, device="cuda")
+    msg = str(err.value)
+    m = re.search(r"n_fft 2048, win_length 2048, hop_length 4800, n_mels 40 needs (\d+) bytes of shared "
+                  r"memory per block; this card lets a block have (\d+)", msg)
+    assert m and int(m.group(1)) > int(m.group(2)), msg
     assert mel_kernel.logmel.launches == before
 
 
@@ -430,3 +450,66 @@ def test_pipeline_on_the_card_matches_cpu(card):
     want = cpu.generate(wavs, lens, z=z)
     assert got.shape == want.shape == (2, 128, 128, 3)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+def _tiny_gan_cfg():
+    return config.apply_overrides(config.default_cfg(), [
+        "DATASET_NAME=synthetic", "TREE.BRANCH_NUM=1", "GAN.GF_DIM=4", "GAN.DF_DIM=4", "GAN.Z_DIM=8",
+        "GAN.EMBEDDING_DIM=16", "GAN.R_NUM=1", "TEXT.DIMENSION=32", "TRAIN.BATCH_SIZE=8"])
+
+
+def _host_state(st) -> dict:
+    return checkpoint.to_host(st.state_dict())
+
+
+def _assert_equal_states(got: dict, want: dict, path: str = "") -> None:
+    if isinstance(want, dict):
+        assert got.keys() == want.keys(), path
+        for k in want:
+            _assert_equal_states(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_equal_states(g, w, f"{path}/{i}")
+    elif torch.is_tensor(want):
+        assert got.device.type == "cpu" and torch.equal(got, want), path
+    else:
+        assert got == want, path
+
+
+def test_checkpoints_move_between_card_and_cpu(card, tmp_path):
+    """A state trained a step on the card restores bitwise into a fresh CPU
+    state, and one trained on the CPU into a fresh card state."""
+    cfg = _tiny_gan_cfg()
+    batch = next(iter(cli.synthetic_gan_batches(cfg)(0)))
+    for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+        st = gan.init_state(cfg, device=src)
+        gan.train_step(st, batch)
+        mgr = checkpoint.CheckpointManager(str(tmp_path / src))
+        mgr.save(st.step, st)
+        fresh = gan.init_state(cfg, device=dst)
+        mgr.restore_latest(fresh)
+        assert fresh.device.type == dst and fresh.step == 1
+        _assert_equal_states(_host_state(fresh), _host_state(st))
+        gan.train_step(fresh, batch)  # the restored optimizer state works where it landed
+
+
+def test_trainer_resumes_on_the_card(card, tmp_path):
+    """3 steps, stop, resume to 6: bitwise the uninterrupted 6 steps, with
+    cuDNN's deterministic algorithms (restored afterwards)."""
+    cfg = _tiny_gan_cfg()
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        def run(out, **kw):
+            t = loop.GanTrainer(cfg, str(out), cli.gan_batch_factory(cfg), device="cuda", image_every=0)
+            t.train(max_epoch=2, **kw)
+            t.close()
+            return t
+        want = _host_state(run(tmp_path / "straight", max_steps=6).state)
+        assert run(tmp_path / "stopped", max_steps=3).state.step == 3
+        got = run(tmp_path / "stopped", max_steps=6)
+        assert os.path.exists(tmp_path / "stopped" / "ckpt" / "6.pt")
+        _assert_equal_states(_host_state(got.state), want)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags

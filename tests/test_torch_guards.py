@@ -74,6 +74,7 @@ def test_port_imports_with_jax_blocked():
         "import s2i_tpu_torch.pipeline, s2i_tpu_torch.serving, s2i_tpu_torch.bridge\n"
         "import s2i_tpu_torch.cli, s2i_tpu_torch.train.encoder, s2i_tpu_torch.data\n"
         "import s2i_tpu_torch.train.gan, s2i_tpu_torch.models.discriminator\n"
+        "import s2i_tpu_torch.train.loop, s2i_tpu_torch.utils.checkpoint\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120

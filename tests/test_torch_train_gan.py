@@ -53,7 +53,7 @@ from s2i_tpu.data import SyntheticGanDataset as JaxGanDataset
 from s2i_tpu.train import gan as jax_gan
 from s2i_tpu_torch import bridge, cli, config
 from s2i_tpu_torch.data import SyntheticGanDataset, synthetic_wavs
-from s2i_tpu_torch.train import gan
+from s2i_tpu_torch.train import gan, loop
 
 B = 4
 MET_RTOL, MET_ATOL = 1e-4, 1e-5
@@ -382,8 +382,8 @@ def test_optimizer_choices():
 def test_run_gan_training_logs_scalars(tmp_path, monkeypatch, mode):
     cfg, _ = cfgs("TREE.BRANCH_NUM=1", "DATASET_NAME=synthetic", *(JOINT if mode == "joint" else ()))
     calls = []
-    featurize = cli.featurize
-    monkeypatch.setattr(cli, "featurize", lambda *a: calls.append(1) or featurize(*a))
+    featurize = loop.featurize  # the trainer featurizes each joint batch as it takes it
+    monkeypatch.setattr(loop, "featurize", lambda *a: calls.append(1) or featurize(*a))
     mets = cli.run_gan_training(cfg, steps=2, device="cpu", run_dir=str(tmp_path), log_every=1)
     assert len(calls) == (2 if mode == "joint" else 0)  # one wav batch featurized per step
     lines = [json.loads(line) for line in (tmp_path / "scalars.jsonl").read_text().splitlines()]
@@ -396,9 +396,9 @@ def test_run_gan_training_logs_scalars(tmp_path, monkeypatch, mode):
 def test_gan_batch_factory_prefers_the_callers_batches():
     cfg, _ = cfgs("TREE.BRANCH_NUM=1", "DATASET_NAME=synthetic")
     mine = dataset(cfg).batch(np.array([3, 2, 1, 0]))
-    got = list(cli.gan_batch_factory(cfg, "cpu", lambda epoch: [mine])(0))
+    got = list(cli.gan_batch_factory(cfg, lambda epoch: [mine])(0))
     assert len(got) == 1 and got[0] is mine
-    synth = list(cli.gan_batch_factory(cfg, "cpu")(0))
+    synth = list(cli.gan_batch_factory(cfg)(0))
     assert len(synth) == cli._synthetic_gan(cfg).n // B
 
 
@@ -421,4 +421,4 @@ def test_gan_entry_points_need_a_card_unless_told_cpu(tmp_path):
         cli.run_gan_training(cfg, steps=1, run_dir=str(tmp_path))
     cfg.DATASET_NAME = "birds"
     with pytest.raises(NotImplementedError, match="batches"):
-        cli.gan_batch_factory(cfg, "cpu")
+        cli.gan_batch_factory(cfg)
