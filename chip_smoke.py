@@ -61,7 +61,22 @@ Phases, each of which passes or raises (nothing is caught):
                trainer's G untouched, sample_to_dir images/s, and the serve
                phase's WAVs through SpeechToImage.from_checkpoints of the
                run, bitwise equal to a pipeline of the trainer's in-memory
-               EMA state; K1, K2 and K3 once per step, K1 and K2 per serve.
+               EMA state; K1, K2 and K3 once per step, K1 and K2 per serve;
+ 10. data    - the real-data path through the port's CLI at full birds
+               width: a StackGAN tree made from SEED
+               (tools_torch/make_fixture_dataset.py: 8 classes x 7 images
+               at 500 px, 10 captions each, WAVs of 3 000-164 080 samples),
+               then entrypoints.main pretrain-encoder (1 epoch), --extract
+               (speech-embeddings.pickle of both splits, shapes and
+               finiteness, one row against the pipeline's embedding of its
+               WAV alone), train birds_3stages (2 epochs) and
+               birds_joint_ft (1 epoch, NET_E), and sample eval_birds (a
+               PNG per test file name and sample); K1, K2 (and K3) once per
+               step and extraction batch; which image loader ran, the
+               loaders' host rates, the wav batch's copy pageable against
+               pinned, and windows of encoder and GAN steps on made-ahead
+               and loader batches through the pinned prefetch, with the
+               device's idle share between steps.
 The last lines are a JSON record of the kernels, the card as nvidia-smi
 names it, and {"ok": true, "device": {...}}.
 """
@@ -71,6 +86,7 @@ from __future__ import annotations
 import io
 import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -81,8 +97,9 @@ import urllib.request
 
 import numpy as np
 import torch
+from PIL import Image
 
-from s2i_tpu_torch import cli, config
+from s2i_tpu_torch import cli, config, entrypoints, native
 from s2i_tpu_torch.audio import filters
 from s2i_tpu_torch.audio.frontend import (
     FrontendParams,
@@ -93,6 +110,8 @@ from s2i_tpu_torch.audio.frontend import (
 )
 from s2i_tpu_torch.audio.wavio import write_wav
 from s2i_tpu_torch.data import SyntheticGanDataset, synthetic_wavs
+from s2i_tpu_torch.data.pipeline import Prefetcher
+from s2i_tpu_torch.data.stackgan import GanEpochIterator, SpeechEpochIterator, StackGanSplit
 from s2i_tpu_torch.device import resolve_device
 from s2i_tpu_torch.models.layers import BatchNorm
 from s2i_tpu_torch.ops import build, gru_kernel, mel_kernel
@@ -100,10 +119,12 @@ from s2i_tpu_torch.pipeline import SpeechToImage, build_encoder, build_generator
 from s2i_tpu_torch.serving import make_server
 from s2i_tpu_torch.train import encoder as encoder_train
 from s2i_tpu_torch.train import gan
-from s2i_tpu_torch.train.loop import GanTrainer
+from s2i_tpu_torch.train.loop import PREFETCH_DEPTH, GanTrainer
 from s2i_tpu_torch.train.encoder import encoder_train_step, init_encoder_state
 from s2i_tpu_torch.train.losses import distillation_loss
+from s2i_tpu_torch.utils import CheckpointManager
 from s2i_tpu_torch.utils.checkpoint import to_host
+from tools_torch.make_fixture_dataset import make_fixture
 
 # NVIDIA H100 SXM data sheet (700 W): fp32 and fp64 without tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
@@ -121,6 +142,12 @@ GAN_STEP_RUNS = 10  # timed GAN steps, after 2 of warm-up
 CHECK_BATCH = 4  # batch of the first GAN step held card vs CPU
 LOOP_STEPS = 4  # steps of the loop phase's runs; the stopped run stops at half of them
 LOOP_SAMPLES = 48  # embeddings sampled to PNGs by the loop phase, GAN_BATCH at a time
+DATA_CLASSES, DATA_PER_CLASS, DATA_CAPTIONS = 8, 7, 10  # the data phase's tree: CUB's 10 captions an image
+DATA_TRAIN = DATA_CLASSES * (DATA_PER_CLASS - 1)  # one image of each class is the test split's
+DATA_IMAGE_PX = 500  # CUB's photos are about 500 px on the long side
+DATA_WAV_SAMPLES = (3000, 164080)  # up to the longest utterance the birds frontend takes
+DATA_STEPS = 14  # timed encoder steps of each data-phase window
+DATA_GAN_STEPS = 10  # timed GAN steps of each data-phase window
 AB_SHAPE = (8, 64000)  # scripts/perf_cert.py::cert_mel's wav batch
 FLUSH_BYTES = 256 << 20  # written between launches of a cold timing: five times the H100's 50 MB L2
 
@@ -171,6 +198,11 @@ TOL_GAN_GRAD_NET = 1.5e-2
 TOL_GAN_GRAD_MEDIAN = 6e-3
 TOL_GAN_GRAD_TENSOR = 0.2
 TOL_GAN_STATS = 1e-4
+
+
+# step medians (ms) of the train, gan and joint phases on batches made ahead
+# in host memory, for the data phase to print beside its loader-fed steps
+MADE_AHEAD_MS: dict[str, float] = {}
 
 
 def log(msg: str) -> None:
@@ -873,6 +905,7 @@ def phase_train(card: str) -> dict[str, int]:
         raise AssertionError(f"loss not finite after {state.step} steps: {m}")
     parts = [step_parts_ms(state, raw, p) for _ in range(3)]
     med = {k: float(np.median([pt[k] for pt in parts])) for k in parts[0]}
+    MADE_AHEAD_MS["encoder"] = float(np.median(times))
     log(f"[train] {card}: batch {TRAIN_BATCH} step (featurize + encoder_train_step) ms "
         f"median {np.median(times):.2f} min {min(times):.2f} max {max(times):.2f} (n={len(times)}); "
         f"device ms (median of 3) " + " ".join(f"{k} {v:.3f}" for k, v in med.items())
@@ -1098,6 +1131,7 @@ def phase_gan(card: str, path: str) -> dict[str, int]:
     parts = [gan_step_parts_ms(st, next(stream), p, joint) for _ in range(3)]
     med = {k: float(np.median([pt[k] for pt in parts])) for k in parts[0]}
     t_med = float(np.median(times))
+    MADE_AHEAD_MS[tag] = t_med
     log(f"[{tag}] {card}: batch {GAN_BATCH} step ({'featurize + ' if joint else ''}train_step) ms "
         f"median {t_med:.2f} min {min(times):.2f} max {max(times):.2f} (n={len(times)}), "
         f"{GAN_BATCH / t_med * 1e3:.1f} images/s; device ms (median of 3) "
@@ -1269,6 +1303,256 @@ def phase_loop(card: str) -> dict[str, int]:
     return {k: train_launches[k] + serve_launches[k] for k in train_launches}
 
 
+def fixture_tree(root: str) -> tuple[str, float]:
+    """The data phase's StackGAN tree under ``root``; returns (path, seconds)."""
+    t0 = time.time()
+    path = os.path.join(root, "fixture")
+    counts = make_fixture(path, classes=DATA_CLASSES, per_class=DATA_PER_CLASS, captions=DATA_CAPTIONS,
+                          emb_dim=1024, image_size=DATA_IMAGE_PX, wav_samples=DATA_WAV_SAMPLES, seed=SEED)
+    if counts != {"train": DATA_TRAIN, "test": DATA_CLASSES}:
+        raise AssertionError(f"fixture splits {counts}")
+    return path, time.time() - t0
+
+
+def copy_ms(host: np.ndarray) -> tuple[float, float]:
+    """Median ms (CUDA events, 5 runs) of one host→card copy of ``host``:
+    from pageable memory, and from a pinned buffer filled beforehand."""
+    pinned = torch.empty(host.shape, dtype=torch.float32, pin_memory=True)
+    pinned.copy_(torch.from_numpy(host))
+    out = {}
+    for name, fn in (("pageable", lambda: torch.from_numpy(host).to("cuda")),
+                     ("pinned", lambda: pinned.to("cuda", non_blocking=True))):
+        fn()
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        out[name] = float(np.median(times))
+    return out["pageable"], out["pinned"]
+
+
+def loader_window(batches, step, n: int) -> dict[str, float]:
+    """``n`` steps on the batches of ``batches`` as the loops take them, with
+    no synchronization between steps, after one step of warm-up: host ms
+    per step, host ms spent waiting for the next batch, and the device's idle
+    share between steps (the gaps between one step's last event and the
+    next step's first, over the window; CUDA events on the step's stream)."""
+    it = iter(batches)
+    step(next(it))
+    torch.cuda.synchronize()
+    marks, waits = [], []
+    t0 = time.perf_counter()
+    for _ in range(n):
+        tw = time.perf_counter()
+        batch = next(it)
+        waits.append(time.perf_counter() - tw)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(batch)
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if hasattr(it, "close"):
+        it.close()  # a prefetcher's: stops and reaps its thread
+    gaps = sum(marks[i][1].elapsed_time(marks[i + 1][0]) for i in range(n - 1))
+    span = marks[0][0].elapsed_time(marks[-1][1])
+    return {"ms_per_step": 1e3 * wall / n, "wait_ms": 1e3 * float(np.mean(waits)), "idle_share": gaps / span,
+            "device_ms_per_step": span / n}
+
+
+def window_line(w: dict[str, float]) -> str:
+    return (f"{w['ms_per_step']:.2f} ms/step (host clock over the window), waiting for the next batch "
+            f"{w['wait_ms']:.2f} ms/step, device span {w['device_ms_per_step']:.2f} ms/step, idle between "
+            f"steps {100 * w['idle_share']:.1f}%")
+
+
+def finite_checkpoint(ckpt_dir: str) -> int:
+    """The latest checkpoint's step; raises if any float tensor in it is not finite."""
+    raw, step = CheckpointManager(ckpt_dir).restore_latest_raw()
+    bad = [k for k, v in flat_state(raw).items() if torch.is_tensor(v) and v.is_floating_point()
+           and not torch.isfinite(v).all()]
+    if bad:
+        raise AssertionError(f"{ckpt_dir}: non-finite tensors {bad[:5]}")
+    return step
+
+
+def only_run(out: str, prefix: str) -> str:
+    (name,) = [n for n in os.listdir(out) if n.startswith(prefix)]
+    return os.path.join(out, name)
+
+
+def phase_data(card: str) -> dict[str, int]:
+    """The real-data path through the port's CLI at full birds width, on a
+    StackGAN tree made from SEED (tools_torch/make_fixture_dataset.py):
+    pretrain → extract → train (frozen, joint) → sample, each through
+    entrypoints.main; the loaders' host rates, the wav copy pageable vs
+    pinned, and the encoder and GAN steps fed by the loaders through the
+    pinned prefetch against steps on batches made ahead."""
+    t_phase = time.time()
+    os.makedirs("output", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_", dir="output")
+    try:
+        tree, fixture_s = fixture_tree(root)
+        runs = os.path.join(root, "runs")
+        lib = native.get_lib()
+        loader = "native (C++ JPEG decode, s2i_tpu_torch/native)" if lib is not None else \
+            f"PIL (the native loader did not build: {native.unavailable_reason()})"
+        log(f"[data] fixture {DATA_CLASSES} classes x {DATA_PER_CLASS} images ({DATA_TRAIN} train, "
+            f"{DATA_CLASSES} test), {DATA_CAPTIONS} captions each, {DATA_IMAGE_PX} px JPEGs, 1024-d teacher "
+            f"embeddings, 16 kHz WAVs of {DATA_WAV_SAMPLES[0]}..{DATA_WAV_SAMPLES[1]} samples, made in "
+            f"{fixture_s:.1f} s; image loader: {loader}")
+
+        enc_cfg = config.cfg_from_file("cfg/pretrain_encoder_birds.yml")
+        birds_cfg = config.apply_overrides(config.cfg_from_file("cfg/birds_3stages.yml"), [f"DATA_DIR={tree}"])
+        p = frontend_params_from_cfg(enc_cfg.AUDIO)
+        split = StackGanSplit(tree, "train")
+
+        # the host loaders alone
+        it = GanEpochIterator(split, GAN_BATCH, 3, seed=SEED, num_threads=int(birds_cfg.WORKERS),
+                              image_dtype=str(birds_cfg.DATA.IMAGE_DTYPE), ship_scales=str(birds_cfg.DATA.SHIP_SCALES))
+        rates = {}
+        for name, use_native in (("native", True), ("PIL", False)):
+            if use_native and lib is None:
+                continue
+            it.use_native = use_native
+            t0 = time.perf_counter()
+            n_img = sum(len(b["images"][0]) for _ in range(2) for b in it)
+            rates[name] = n_img / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        n_utt = sum(len(b["wav"]) for b in SpeechEpochIterator(split, TRAIN_BATCH, p.sample_rate, p.max_samples))
+        utt_rate = n_utt / (time.perf_counter() - t0)
+        pageable_ms, pinned_ms = copy_ms(np.zeros((TRAIN_BATCH, p.max_samples), np.float32))
+        mb = TRAIN_BATCH * p.max_samples * 4 / 1e6
+        log(f"[data] {card}: host loaders alone: " + ", ".join(f"{k} {v:.1f} images/s" for k, v in rates.items())
+            + f" at 256 px (GanEpochIterator, batch {GAN_BATCH}, uint8 top scale, {birds_cfg.WORKERS} threads); "
+            f"{utt_rate:.1f} utterances/s (SpeechEpochIterator, batch {TRAIN_BATCH}, serial WAV reads); one "
+            f"encoder wav batch ({mb:.1f} MB) host->card: pageable {pageable_ms:.3f} ms, pinned {pinned_ms:.3f} ms "
+            f"({mb / pinned_ms:.1f} GB/s; CUDA events, median of 5)")
+
+        base = ["--data_dir", tree, "--output_dir", runs]
+        counts = {}
+
+        def counted(name: str, argv: list[str]):
+            reset_counts()
+            t0 = time.time()
+            result = entrypoints.main(argv + base)
+            counts[name] = read_counts()
+            return result, time.time() - t0
+
+        _, pre_s = counted("pretrain", ["pretrain-encoder", "--cfg", "cfg/pretrain_encoder_birds.yml", "--set",
+                                        "ENCODER.EPOCHS=1", "ENCODER.LOG_EVERY=1"])
+        enc_run = only_run(runs, "birds_encoder_encoder_")
+        with open(os.path.join(enc_run, "scalars.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        steps = DATA_TRAIN * DATA_CAPTIONS // TRAIN_BATCH
+        if len(losses) != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"pretraining losses {losses}: not {steps} finite ones")
+        finite_checkpoint(os.path.join(enc_run, "ckpt"))
+
+        written, ext_s = counted("extract", ["pretrain-encoder", "--cfg", "cfg/pretrain_encoder_birds.yml",
+                                             "--extract", os.path.join(enc_run, "ckpt")])
+        n_ext = (DATA_TRAIN + DATA_CLASSES) * DATA_CAPTIONS
+        embs = {}
+        for name, n in (("train", DATA_TRAIN), ("test", DATA_CLASSES)):
+            embs[name] = StackGanSplit(tree, name, embedding_file="speech-embeddings.pickle").embeddings
+            if embs[name].shape != (n, DATA_CAPTIONS, 1024) or not np.isfinite(embs[name]).all():
+                raise AssertionError(f"{written[name]}: shape {embs[name].shape} or not finite")
+        # one utterance's row against the pipeline's encoder embedding of its WAV alone
+        enc_sd = CheckpointManager(os.path.join(enc_run, "ckpt")).restore_latest_raw()[0]["model"]
+        pipe = SpeechToImage(enc_cfg, enc_sd, build_generator(enc_cfg).state_dict(), device="cuda")
+        test = StackGanSplit(tree, "test")
+        row = (DATA_CLASSES - 1, DATA_CAPTIONS - 1)  # the last test image's last caption
+        wav = test.load_wav(*row, p.sample_rate)[: p.max_samples]
+        with torch.no_grad():
+            one = embedding(pipe.encoder(*extract_features(wav[None], pipe.p, [len(wav)], device="cuda")))
+        ext_err = float(np.abs(one[0].cpu().numpy() - embs["test"][row]).max())
+        del pipe
+        if not ext_err <= TOL_FEATS:
+            raise AssertionError(f"extracted row vs the pipeline's embedding: {ext_err} > {TOL_FEATS}")
+
+        counted("train", ["train", "--cfg", "cfg/birds_3stages.yml", "--set", "TRAIN.MAX_EPOCH=2"])
+        gan_run = only_run(runs, "birds_3stages_train_")
+        counted("joint", ["train", "--cfg", "cfg/birds_joint_ft.yml", "--set", "TRAIN.MAX_EPOCH=1",
+                          f"TRAIN.NET_E={os.path.join(enc_run, 'ckpt')}"])
+        joint_run = only_run(runs, "birds_joint_train_")
+        gan_steps = DATA_TRAIN // GAN_BATCH
+        for run, want in ((gan_run, 2 * gan_steps), (joint_run, gan_steps)):
+            with open(os.path.join(run, "run_meta.json")) as f:
+                meta = json.load(f)
+            if finite_checkpoint(os.path.join(run, "ckpt")) != want or meta["device"] != torch.cuda.get_device_name(0):
+                raise AssertionError(f"{run}: not {want} steps on the card ({meta['device']})")
+        samples, sample_s = counted("sample", ["sample", "--cfg", "cfg/eval_birds.yml", "--set",
+                                               f"TRAIN.NET_G={os.path.join(gan_run, 'ckpt')}"])
+        names = sorted(f.replace("/", "_") + ".png" for f in test.filenames)
+        n_samples = int(config.cfg_from_file("cfg/eval_birds.yml").EVAL.NUM_SAMPLES_PER_EMB)
+        got = {s: sorted(os.listdir(os.path.join(samples, str(s)))) for s in range(n_samples)}
+        if any(v != names for v in got.values()):
+            raise AssertionError(f"samples {got} are not one PNG per test image {names}")
+        with Image.open(os.path.join(samples, "0", names[0])) as im:
+            px = np.asarray(im)
+        if px.shape != (256, 256, 3) or not px.std() > 0:
+            raise AssertionError(f"sample {names[0]}: shape {px.shape}, std {px.std()}")
+
+        extract_batches = sum(math.ceil(n * DATA_CAPTIONS / TRAIN_BATCH) for n in (DATA_TRAIN, DATA_CLASSES))
+        per_step = {"pretrain": steps, "extract": extract_batches, "train": 0, "joint": gan_steps, "sample": 0}
+        want = {name: {"mel_fused": n, "gru_fwd": n, "gru_bwd": n if name in ("pretrain", "joint") else 0,
+                       "mel_framed": 0} for name, n in per_step.items()}
+        log(f"[data] {card}: through entrypoints.main: pretrain {steps} steps {pre_s:.1f} s, extract "
+            f"{n_ext} utterances in {ext_s:.1f} s ({n_ext / ext_s:.1f} utterances/s, model load and pickle "
+            f"writes included), extracted row vs the pipeline's embedding max_abs_err {ext_err:.3g} (tol "
+            f"{TOL_FEATS}), train {2 * gan_steps} + joint {gan_steps} steps on the card, sample {n_samples} x "
+            f"{len(names)} PNGs in {sample_s:.1f} s; launches " + "; ".join(f"{k} {v}" for k, v in counts.items()))
+        if counts != want:
+            raise AssertionError(f"launches {counts}, expected {want}: K1, K2 (+ K3) once per step or batch")
+
+        # the steps on loader batches through the pinned prefetch, against
+        # batches made ahead in host memory (the train and gan phases')
+        cli_cfg = config.apply_overrides(config.cfg_from_file("cfg/pretrain_encoder_birds.yml"),
+                                         [f"DATA_DIR={tree}"])
+        state = init_encoder_state(cli_cfg, device="cuda")
+        host = cli.speech_host_batches(cli_cfg)
+        made = list(itertools.islice(host(0), 2))
+        enc_step = lambda b: encoder_train_step(state, cli.featurize(b, p, "cuda"))  # noqa: E731
+        runs_enc = {
+            "made ahead, pageable copy in the step": loader_window(itertools.cycle(made), enc_step, DATA_STEPS),
+            "made ahead, pinned prefetch": loader_window(
+                Prefetcher(itertools.cycle(made), depth=cli.SPEECH_PREFETCH, device="cuda"), enc_step, DATA_STEPS),
+            "loader, pinned prefetch": loader_window(
+                Prefetcher(itertools.chain.from_iterable(host(e) for e in range(4)), depth=cli.SPEECH_PREFETCH,
+                           device="cuda"), enc_step, DATA_STEPS),
+        }
+        del state
+        st = gan.init_state(birds_cfg, device="cuda")
+        factory = cli.gan_batch_factory(birds_cfg)
+        made = list(factory(0))
+        gan_step = lambda b: gan.train_step(st, b)  # noqa: E731
+        runs_gan = {
+            "made ahead, copy in the step": loader_window(itertools.cycle(made), gan_step, DATA_GAN_STEPS),
+            "loader, pinned prefetch": loader_window(
+                Prefetcher(itertools.chain.from_iterable(factory(e) for e in range(DATA_GAN_STEPS)),
+                           depth=PREFETCH_DEPTH, device="cuda"), gan_step, DATA_GAN_STEPS),
+        }
+        del st
+        for what, results, ref in (("encoder", runs_enc, "encoder"), ("GAN", runs_gan, "gan")):
+            log(f"[data] {card}: {what} step, {DATA_STEPS if what == 'encoder' else DATA_GAN_STEPS} steps "
+                f"each, no sync between steps; the {ref} phase's median on made-ahead batches (synchronized "
+                f"per step) {MADE_AHEAD_MS.get(ref, float('nan')):.2f} ms: "
+                + "; ".join(f"{k}: {window_line(w)}" for k, w in results.items()))
+        for w in (*runs_enc.values(), *runs_gan.values()):
+            if not np.isfinite(w["ms_per_step"]):
+                raise AssertionError(f"a timed window failed: {w}")
+        log(f"[data] phase took {time.time() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {k: sum(c[k] for c in counts.values()) for k in KERNELS}
+
+
 def main() -> None:
     name, smi = phase_device()
     phase_build()
@@ -1276,7 +1560,7 @@ def main() -> None:
     card = f"{name} ({smi})"
     paths = {"serve": phase_serve(card), "train": phase_train(card), "mel_ab": phase_mel_ab(card),
              "gan": phase_gan(card, "cfg/birds_3stages.yml"), "joint": phase_gan(card, "cfg/birds_joint_ft.yml"),
-             "loop": phase_loop(card)}
+             "loop": phase_loop(card), "data": phase_data(card)}
     rows = []
     for kname, (_, src, replaces) in KERNELS.items():
         by_path = {path: counts[kname] for path, counts in paths.items()}

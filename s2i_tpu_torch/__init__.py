@@ -21,7 +21,12 @@ rebuilt on PyTorch for an NVIDIA Hopper card:
 Both training loops checkpoint the full train state (utils.checkpoint,
 ``torch.save`` files readable on the card and the CPU) and resume exactly
 where they stopped; ``SpeechToImage.from_checkpoints`` serves what they
-trained.
+trained. Real data comes from a StackGAN tree (data.stackgan, with the C++
+JPEG loader of native/), through a prefetch thread that copies batches to
+the card from pinned buffers (data.pipeline); cli.run_embedding_extraction
+writes the speech embeddings the GAN trains on. ``python -m s2i_tpu_torch``
+(entrypoints.py) runs pretrain / extract / train / sample from the command
+line.
 
 ``ops.mel_kernel.logmel_framed`` (csrc/mel_framed.cu) computes the log-mel
 from pre-framed rows, for the frontend A/B only.
@@ -30,9 +35,10 @@ Entry points (``pipeline.SpeechToImage`` and its ``from_checkpoints``,
 ``serving.make_server``, ``audio.frontend.extract_features``,
 ``train.encoder.init_encoder_state``, ``train.gan.init_state``,
 ``train.loop.GanTrainer``, ``cli.run_encoder_pretrain``,
-``cli.run_gan_training``, ``cli.run_sampling``) run on ``device="cuda"``
-unless the caller passes
-``device="cpu"``; without a card they raise instead of drifting to the CPU.
+``cli.run_embedding_extraction``, ``cli.run_gan_training``,
+``cli.run_sampling``, the command line) run on ``device="cuda"`` unless
+the caller passes ``device="cpu"`` (``--device cpu``); without a card
+they raise instead of drifting to the CPU.
 On a CPU tensor every kernel wrapper runs its plain PyTorch version, which
 is how the tests hold the port against the JAX package. The package imports
 nothing of JAX or of ``s2i_tpu``.

@@ -253,3 +253,18 @@ def apply_overrides(cfg_tree: AttrDict, overrides: list[str]) -> AttrDict:
             )
         node[leaf] = val
     return cfg_tree
+
+
+def dump_cfg(cfg_tree: AttrDict, path) -> None:
+    """Write the resolved config as YAML (a run dir's ``config.yml``), which
+    :func:`cfg_from_file` reads back. ``path``: a filesystem path or an open
+    text stream."""
+    if hasattr(path, "write"):
+        yaml.safe_dump(_to_plain(cfg_tree), path, sort_keys=False)
+        return
+    with open(path, "w") as f:
+        yaml.safe_dump(_to_plain(cfg_tree), f, sort_keys=False)
+
+
+def _to_plain(tree: Mapping) -> dict:
+    return {k: _to_plain(v) if isinstance(v, Mapping) else v for k, v in tree.items()}

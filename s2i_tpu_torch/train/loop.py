@@ -8,9 +8,11 @@ leaves the step's math to ``train.gan.train_step``.
     trainer.sample_to_dir(embeddings, out_dir)           # PNG tree from the EMA G
 
 ``batch_factory(epoch)`` yields host batches in a fixed order for each epoch
-(``cli.synthetic_gan_batches`` draws them from (SEED, epoch)); joint-mode
-batches may carry wavs, which the loop featurizes on the device just
-before their step. A run that stops (``max_steps``, SIGTERM) checkpoints the
+(``cli.synthetic_gan_batches`` draws them from (SEED, epoch), the StackGAN
+loader from SEED + epoch); a prefetch thread loads them ahead of the step
+and copies them to the device (``data.pipeline.Prefetcher``: pinned
+buffers, a side stream). Joint-mode batches carry wavs, which the loop
+featurizes on the device just before their step. A run that stops (``max_steps``, SIGTERM) checkpoints the
 full state with its place in the batch stream (``train_progress.json``),
 and a trainer on the same directory resumes at the next batch, bitwise as
 if it had not stopped.
@@ -30,12 +32,14 @@ import numpy as np
 import torch
 
 from s2i_tpu_torch.audio.frontend import featurize, frontend_params_from_cfg
+from s2i_tpu_torch.data.pipeline import Prefetcher
 from s2i_tpu_torch.device import resolve_device
 from s2i_tpu_torch.models.generator import GNet
 from s2i_tpu_torch.train import gan
 from s2i_tpu_torch.utils import CheckpointManager, ScalarLogger, profile_steps, save_image_grid, save_images
 
 PROFILE_STEPS = 5  # steps in a TRAIN.PROFILE_DIR trace, which starts 5 steps into a train() call
+PREFETCH_DEPTH = 4  # batches loaded and copied to the device ahead of the step, as in the JAX loop
 
 
 class GanTrainer:
@@ -173,6 +177,11 @@ class GanTrainer:
         print(f"encoder warm-started from {net_e} step {estep}")
 
     def _prep(self, batch: dict) -> dict:
+        # Featurize (K1 and the normalization, well under a millisecond on
+        # the card) runs here on the consumer's stream, not in the prefetch
+        # thread: the kernels' launch counters and caches are then written
+        # by one thread only. The wavs' copy to the card, the part that
+        # takes milliseconds, is the prefetch thread's.
         return featurize(batch, self.p, self.device) if "wav" in batch else batch
 
     def train(self, max_epoch: int | None = None, max_steps: int | None = None) -> dict:
@@ -217,32 +226,38 @@ class GanTrainer:
                     continue  # the epoch shrank since the checkpoint: it is done
                 self._progress = {"epoch": epoch, "step_in_epoch": skip}
                 stopped = False
-                for batch in raw:
-                    b = len(batch["images"][0])
-                    mets = gan.train_step(self.state, self._prep(batch))
-                    step = self.state.step
-                    self._progress["step_in_epoch"] += 1
-                    if debug_nans:
-                        bad = {k: float(v) for k, v in mets.items() if not np.isfinite(float(v))}
-                        if bad:
-                            raise FloatingPointError(f"non-finite metrics at step {step}: {bad}")
-                    if profile_dir and step == profile_at:
-                        profiling.enter_context(profile_steps(profile_dir))
-                    elif step == profile_at + PROFILE_STEPS:
-                        profiling.close()
-                    imgs_done += b
-                    if self.log_every and step % self.log_every == 0:
-                        scalars = {k: float(v) for k, v in mets.items()}
-                        scalars["images_per_sec"] = imgs_done / max(time.time() - t0, 1e-9)
-                        self.logger.log(step, scalars)
-                        t0, imgs_done = time.time(), 0
-                    if self.image_every and step % self.image_every == 0:
-                        self._save_grid(step)
-                    if snapshot and step % snapshot == 0:
-                        self._save_checkpoint(step)
-                    if stop_requested or (max_steps is not None and step >= max_steps):
-                        stopped = True
-                        break
+                # host loading and the copy to the device run in the
+                # prefetch thread, overlapping the steps before them
+                batches = Prefetcher(raw, depth=PREFETCH_DEPTH, device=self.device)
+                try:
+                    for batch in batches:
+                        b = len(batch["images"][0])
+                        mets = gan.train_step(self.state, self._prep(batch))
+                        step = self.state.step
+                        self._progress["step_in_epoch"] += 1
+                        if debug_nans:
+                            bad = {k: float(v) for k, v in mets.items() if not np.isfinite(float(v))}
+                            if bad:
+                                raise FloatingPointError(f"non-finite metrics at step {step}: {bad}")
+                        if profile_dir and step == profile_at:
+                            profiling.enter_context(profile_steps(profile_dir))
+                        elif step == profile_at + PROFILE_STEPS:
+                            profiling.close()
+                        imgs_done += b
+                        if self.log_every and step % self.log_every == 0:
+                            scalars = {k: float(v) for k, v in mets.items()}
+                            scalars["images_per_sec"] = imgs_done / max(time.time() - t0, 1e-9)
+                            self.logger.log(step, scalars)
+                            t0, imgs_done = time.time(), 0
+                        if self.image_every and step % self.image_every == 0:
+                            self._save_grid(step)
+                        if snapshot and step % snapshot == 0:
+                            self._save_checkpoint(step)
+                        if stop_requested or (max_steps is not None and step >= max_steps):
+                            stopped = True
+                            break
+                finally:
+                    batches.close()
                 if stopped:
                     if stop_requested:
                         print(f"SIGTERM: checkpointing at step {step}")

@@ -513,3 +513,51 @@ def test_trainer_resumes_on_the_card(card, tmp_path):
         _assert_equal_states(_host_state(got.state), want)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+def _host_batches(n: int, seed: int = 0):
+    """``n`` batches shaped like the loaders': a tuple of uint8 images, float
+    wavs, int lengths; every batch's values differ."""
+    rng = np.random.default_rng(seed)
+    for _ in range(n):
+        yield {"images": (rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8),),
+               "wav": rng.standard_normal((4, 50_000)).astype(np.float32),
+               "wav_len": rng.integers(1, 50_000, 4).astype(np.int32), "step": 3}
+
+
+def test_pinned_prefetch_equals_pageable_copies(card):
+    """The side-stream copies from the pinned ring equal plain copies, also
+    when the consumer's stream is busy while the producer runs ahead and
+    refills the ring (depth 2: a ring of 4 buffers per key, 12 batches), and
+    when the consumer reads each batch on its own stream at once."""
+    from s2i_tpu_torch.data.pipeline import prefetch
+
+    want = [{k: torch.as_tensor(v[0] if k == "images" else v) for k, v in b.items() if k != "step"}
+            for b in _host_batches(12)]
+    got = []
+    for b in prefetch(_host_batches(12), depth=2, device=card):
+        torch.cuda._sleep(2_000_000)  # the consumer's stream is busy; the copies run ahead
+        got.append({"images": b["images"][0].clone(), "wav": b["wav"] * 1.0, "wav_len": b["wav_len"].clone(),
+                    "step": b["step"]})
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g["step"] == 3 and g["wav"].is_cuda and g["images"].dtype == torch.uint8
+        for k in ("images", "wav", "wav_len"):
+            assert torch.equal(g[k].cpu(), w[k]), k
+
+
+def test_pinned_prefetch_raises_producer_errors_and_reaps_its_thread(card):
+    from s2i_tpu_torch.data.pipeline import Prefetcher
+
+    def failing():
+        yield from _host_batches(1)
+        raise OSError("disk gone")
+
+    pf = Prefetcher(failing(), depth=2, device=card)
+    it = iter(pf)
+    assert next(it)["wav"].is_cuda
+    with pytest.raises(OSError, match="disk gone"):
+        next(it)
+    pf._thread.join(timeout=10)
+    assert not pf._thread.is_alive()

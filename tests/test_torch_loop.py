@@ -113,22 +113,23 @@ def straight(tmp_path_factory):
 
 
 class SigtermAfter:
-    """A batch factory that sends this process SIGTERM as it hands out its
-    ``n``-th batch: the trainer finishes that batch's step, then stops."""
+    """A train step that sends this process SIGTERM as the trainer hands it
+    its ``n``-th batch: the trainer finishes that step, then stops. (The
+    batch factory runs ahead in the trainer's prefetch thread, so a signal
+    sent from there would land some steps before its batch is trained.)"""
 
-    def __init__(self, factory, n: int):
-        self.factory, self.left = factory, n
+    def __init__(self, step, n: int):
+        self.step, self.left = step, n
 
-    def __call__(self, epoch: int):
-        for batch in self.factory(epoch):
-            self.left -= 1
-            if self.left == 0:
-                os.kill(os.getpid(), signal.SIGTERM)
-            yield batch
+    def __call__(self, state, batch, **kw):
+        self.left -= 1
+        if self.left == 0:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return self.step(state, batch, **kw)
 
 
 @pytest.mark.parametrize("stop", ["epoch_boundary", "mid_epoch", "sigterm"])
-def test_resume_is_bitwise_equal_to_the_uninterrupted_run(tmp_path, straight, stop):
+def test_resume_is_bitwise_equal_to_the_uninterrupted_run(tmp_path, straight, stop, monkeypatch):
     """A run stopped at an epoch's end, 2 steps into epoch 1 (max_steps, at
     a snapshot), or by SIGTERM after 9 batches, then resumed by a new trainer on its
     directory, ends bitwise where the uninterrupted run ends: params, BN
@@ -138,8 +139,10 @@ def test_resume_is_bitwise_equal_to_the_uninterrupted_run(tmp_path, straight, st
     if stop == "sigterm":
         cfg.TRAIN.SNAPSHOT_INTERVAL = 10**9  # only the stop's own save may happen
         before = signal.getsignal(signal.SIGTERM)
-        t = trainer(cfg, tmp_path, SigtermAfter(short_epochs(cfg), 9))
-        t.train(max_epoch=50)  # 300 steps, were it not stopped
+        t = trainer(cfg, tmp_path)
+        with monkeypatch.context() as m:
+            m.setattr(gan, "train_step", SigtermAfter(gan.train_step, 9))
+            t.train(max_epoch=50)  # 300 steps, were it not stopped
         assert t.state.step == 9 and t.ckpt.latest_step == 9
         assert signal.getsignal(signal.SIGTERM) is before  # the trainer's handler is gone
         t.close()

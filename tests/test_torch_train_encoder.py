@@ -226,7 +226,8 @@ def test_wav_batches_are_featurized(tmp_path):
     raw = {"wav": 0.1 * rng.standard_normal((2, p.max_samples)).astype(np.float32),
            "wav_len": np.array([p.max_samples, 900], np.int32),
            "teacher": rng.standard_normal((2, 32)).astype(np.float32), "class_id": np.array([0, 3])}
-    with pytest.raises(NotImplementedError, match="wav_batches"):
+    cfg.DATA_DIR = str(tmp_path / "no_data")
+    with pytest.raises(FileNotFoundError, match="filenames.pickle"):  # the StackGAN loader, on a missing tree
         cli.speech_batch_factory(cfg, "cpu")
     (batch,) = list(cli.speech_batch_factory(cfg, "cpu", wav_batches=lambda epoch: [raw])(0))
     assert batch["feats"].shape == (2, 16, 8) and batch["feat_mask"][1].sum() < 16

@@ -419,6 +419,6 @@ def test_gan_entry_points_need_a_card_unless_told_cpu(tmp_path):
         gan.init_state(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.run_gan_training(cfg, steps=1, run_dir=str(tmp_path))
-    cfg.DATASET_NAME = "birds"
-    with pytest.raises(NotImplementedError, match="batches"):
+    cfg.DATASET_NAME, cfg.DATA_DIR = "birds", str(tmp_path / "no_data")
+    with pytest.raises(FileNotFoundError, match="filenames.pickle"):  # the StackGAN loader, on a missing tree
         cli.gan_batch_factory(cfg)
