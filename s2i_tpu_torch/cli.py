@@ -45,7 +45,7 @@ from s2i_tpu_torch.audio.frontend import featurize, frontend_params_from_cfg
 from s2i_tpu_torch.data import SyntheticGanDataset, SyntheticSpeechDataset, synthetic_wavs
 from s2i_tpu_torch.data.pipeline import Prefetcher
 from s2i_tpu_torch.data.stackgan import GanEpochIterator, SpeechEpochIterator, StackGanSplit, wav_batch
-from s2i_tpu_torch.device import resolve_device
+from s2i_tpu_torch.device import compute_dtype, moment_dtype, resolve_device
 from s2i_tpu_torch.pipeline import build_encoder
 from s2i_tpu_torch.train.encoder import encoder_train_step, init_encoder_state
 from s2i_tpu_torch.train.loop import GanTrainer
@@ -80,6 +80,9 @@ def resolve_cfg(args) -> config.AttrDict:
         cfg.SEED = args.manualSeed
     if args.overrides:
         config.apply_overrides(cfg, args.overrides)
+    # a type the port does not take raises here, not after a run's set-up
+    compute_dtype(cfg)
+    moment_dtype(cfg)
     return cfg
 
 

@@ -3,9 +3,12 @@
 The port's own copy of the JAX package's config module: the same default
 tree (key for key, value for value; ``tests/test_torch_guards.py`` holds the
 two equal), so the existing ``cfg/*.yml`` files load unchanged. Keys that
-only steer the JAX training path (``GAN.UPSAMPLE_MODE``, ``GAN.S2D``,
-``GAN.REMAT``, ``MESH``, ...) are read by nothing in the port yet; they stay
-so that a YAML file's type checks behave the same in both packages.
+only steer the JAX package's layouts (``GAN.S2D``, ``GAN.REMAT``, ``MESH``,
+...) are read by nothing in the port yet; they stay so that a YAML file's
+type checks behave the same in both packages. ``DTYPE.COMPUTE`` and
+``TRAIN.MOMENT_DTYPE`` are read through ``device.compute_dtype`` and
+``device.moment_dtype``, which take float32 or bfloat16 and raise on
+anything else.
 """
 
 from __future__ import annotations
@@ -99,7 +102,8 @@ def default_cfg() -> AttrDict:
                 "R_NUM": 2,  # residual blocks per next-stage
                 "REMAT": False,
                 "REMAT_POLICY": "none",
-                # Every mode is the same math; the port runs nearest-2x + 3x3.
+                # naive: nearest-2x, then the 3x3 conv; every other mode sums
+                # the taps into phase kernels first (models/layers.py).
                 "UPSAMPLE_MODE": "transpose",
                 "D_TRUNK_BATCH": "auto",
                 "S2D": "auto",
@@ -171,8 +175,8 @@ def default_cfg() -> AttrDict:
                 "NUM_DEVICES": 0,
             },
             "DTYPE": {
-                # The port computes in float32 in this release; bfloat16
-                # autocast is not wired yet (ROADMAP.md).
+                # What the models compute in (float32 or bfloat16); the
+                # parameters stay float32 (device.compute_dtype).
                 "COMPUTE": "bfloat16",
                 "PARAMS": "float32",
             },

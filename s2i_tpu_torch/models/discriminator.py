@@ -14,6 +14,10 @@ trainer uses BCE-with-logits.
 ``GAN.D_TRUNK_BATCH`` (one dispatch over real|fake with per-segment BN
 statistics) and ``GAN.S2D`` (a space-to-depth first conv) are the same math
 as the sequential passes here.
+
+``dtype`` (``DTYPE.COMPUTE``): the trunk and the heads compute in it (the
+condition is cast to the code's type before it is tiled), and the logits
+come out in float32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,17 +25,19 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from s2i_tpu_torch.models.layers import block3x3_leaky_relu, down_block
+from s2i_tpu_torch.models.layers import Conv2d, LeakyReLU, block3x3_leaky_relu, down_block
+
+F32 = torch.float32
 
 
-def encode_image_by_16times(ndf: int) -> nn.Sequential:
+def encode_image_by_16times(ndf: int, dtype: torch.dtype = F32) -> nn.Sequential:
     """[B, 3, S, S] → [B, 8·ndf, S/16, S/16]; the first conv has no BN."""
     return nn.Sequential(
-        nn.Conv2d(3, ndf, 4, stride=2, padding=1, bias=False),
-        nn.LeakyReLU(0.2),
-        *down_block(ndf, ndf * 2),
-        *down_block(ndf * 2, ndf * 4),
-        *down_block(ndf * 4, ndf * 8),
+        Conv2d(3, ndf, 4, stride=2, padding=1, bias=False, dtype=dtype),
+        LeakyReLU(0.2, dtype),
+        *down_block(ndf, ndf * 2, dtype),
+        *down_block(ndf * 2, ndf * 4, dtype),
+        *down_block(ndf * 4, ndf * 8, dtype),
     )
 
 
@@ -39,17 +45,17 @@ class DLogits(nn.Module):
     """One logit head over the 4×4 code: with a condition, tile it, put it
     after the code channels and run a 3×3 block first."""
 
-    def __init__(self, ndf: int, nef: int, b_condition: bool):
+    def __init__(self, ndf: int, nef: int, b_condition: bool, dtype: torch.dtype = F32):
         super().__init__()
         if b_condition:
-            self.jointConv = block3x3_leaky_relu(ndf * 8 + nef, ndf * 8)
-        self.outlogits = nn.Sequential(nn.Conv2d(ndf * 8, 1, 4, stride=4))
+            self.jointConv = block3x3_leaky_relu(ndf * 8 + nef, ndf * 8, dtype)
+        self.outlogits = nn.Sequential(Conv2d(ndf * 8, 1, 4, stride=4, dtype=dtype))
 
     def forward(self, code: torch.Tensor, c: torch.Tensor | None = None) -> torch.Tensor:
         if c is not None:
-            c_tiled = c[:, :, None, None].expand(-1, -1, code.shape[2], code.shape[3])
+            c_tiled = c.to(code.dtype)[:, :, None, None].expand(-1, -1, code.shape[2], code.shape[3])
             code = self.jointConv(torch.cat([code, c_tiled], dim=1))
-        return self.outlogits(code).view(-1)
+        return self.outlogits(code).view(-1).float()
 
 
 # the trunk's modules after img_code_s16, in call order, per scale
@@ -62,28 +68,28 @@ _TRUNK_TAIL = {
 
 class DNet(nn.Module):
     """D for one scale (64, 128 or 256 px). ``forward(img, c)`` returns
-    ``(cond, uncond)`` logits [B] (``cond`` None without a condition);
+    ``(cond, uncond)`` float32 logits [B] (``cond`` None without a condition);
     BatchNorm follows ``train()``/``eval()``."""
 
     def __init__(self, scale: int, df_dim: int = 64, ef_dim: int = 128,
-                 b_condition: bool = True):
+                 b_condition: bool = True, dtype: torch.dtype = F32):
         super().__init__()
         if scale not in _TRUNK_TAIL:
             raise ValueError(f"scale must be 64, 128 or 256, got {scale}")
         ndf = df_dim
         self.scale, self.ef_dim, self.b_condition = scale, ef_dim, b_condition
-        self.img_code_s16 = encode_image_by_16times(ndf)
+        self.img_code_s16 = encode_image_by_16times(ndf, dtype)
         if scale >= 128:
-            self.img_code_s32 = down_block(ndf * 8, ndf * 16)
+            self.img_code_s32 = down_block(ndf * 8, ndf * 16, dtype)
         if scale == 128:
-            self.img_code_s32_1 = block3x3_leaky_relu(ndf * 16, ndf * 8)
+            self.img_code_s32_1 = block3x3_leaky_relu(ndf * 16, ndf * 8, dtype)
         if scale == 256:
-            self.img_code_s64 = down_block(ndf * 16, ndf * 32)
-            self.img_code_s64_1 = block3x3_leaky_relu(ndf * 32, ndf * 16)
-            self.img_code_s64_2 = block3x3_leaky_relu(ndf * 16, ndf * 8)
+            self.img_code_s64 = down_block(ndf * 16, ndf * 32, dtype)
+            self.img_code_s64_1 = block3x3_leaky_relu(ndf * 32, ndf * 16, dtype)
+            self.img_code_s64_2 = block3x3_leaky_relu(ndf * 16, ndf * 8, dtype)
         if b_condition:
-            self.logits = DLogits(ndf, ef_dim, True)
-        self.uncond_logits = DLogits(ndf, ef_dim, False)
+            self.logits = DLogits(ndf, ef_dim, True, dtype)
+        self.uncond_logits = DLogits(ndf, ef_dim, False, dtype)
 
     def _check_c(self, c: torch.Tensor | None) -> None:
         if c is not None and c.shape[-1] != self.ef_dim:
@@ -125,6 +131,6 @@ class DNet(nn.Module):
 
 
 def build_discriminators(branch_num: int, df_dim: int = 64, ef_dim: int = 128,
-                         b_condition: bool = True) -> list[DNet]:
+                         b_condition: bool = True, dtype: torch.dtype = F32) -> list[DNet]:
     """One D per scale, smallest first."""
-    return [DNet(64 * 2**i, df_dim, ef_dim, b_condition) for i in range(branch_num)]
+    return [DNet(64 * 2**i, df_dim, ef_dim, b_condition, dtype) for i in range(branch_num)]

@@ -8,6 +8,12 @@ State_dict keys follow the reference torch topology (``convs.{i}``,
 writes them. The GRU's input projection for every step is one
 ``F.linear``; the recurrence runs in ``ops.gru_kernel`` (the CUDA kernel on
 the card).
+
+``dtype`` (``DTYPE.COMPUTE``) is what the masked input, the convs, the BNs
+and the GRU's input projection compute in. As in the JAX package, the
+projection is cast to float32 before the recurrence, which runs in float32
+(its kernels take nothing else), its outputs go back to ``dtype``, and the
+pooling and the dense heads run in float32.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from s2i_tpu_torch.models.layers import BatchNorm
+from s2i_tpu_torch.models.layers import BatchNorm, Conv1d
 from s2i_tpu_torch.ops.gru_kernel import gru_scan
 
 
@@ -44,9 +50,10 @@ class BiGRU(nn.Module):
     sequences)."""
 
     def __init__(self, input_size: int, hidden: int, num_layers: int = 1,
-                 bidirectional: bool = True):
+                 bidirectional: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.hidden = hidden
+        self.dtype = dtype
         self.num_layers = num_layers
         self.directions = ("", "_reverse") if bidirectional else ("",)
         bound = 1.0 / math.sqrt(hidden)
@@ -66,13 +73,15 @@ class BiGRU(nn.Module):
         stack = lambda name: [getattr(self, f"{name}_l{layer}{sfx}") for sfx in self.directions]  # noqa: E731
         b, t, _ = x.shape
         n_dir = len(self.directions)
-        # every direction's input projection in one product: [B, T, D*3H]
-        xw = F.linear(x, torch.cat(stack("weight_ih")), torch.cat(stack("bias_ih")))
+        d = self.dtype
+        # every direction's input projection in one product, in the compute
+        # type, then float32 for the recurrence: [B, T, D*3H]
+        xw = F.linear(x.to(d), torch.cat(stack("weight_ih")).to(d), torch.cat(stack("bias_ih")).to(d)).float()
         xw = xw.view(b, t, n_dir, 3 * self.hidden).permute(2, 1, 0, 3).contiguous()  # [D, T, B, 3H]
         w_h = torch.stack([w.t() for w in stack("weight_hh")])  # [D, H, 3H]
-        h0 = x.new_zeros((n_dir, b, self.hidden))
+        h0 = xw.new_zeros((n_dir, b, self.hidden))
         ys = gru_scan(xw, w_h, torch.stack(stack("bias_hh")), mask_t, h0)  # [D, T, B, H]
-        return ys.permute(2, 1, 0, 3).reshape(b, t, n_dir * self.hidden)  # [B, T, D*H]
+        return ys.permute(2, 1, 0, 3).reshape(b, t, n_dir * self.hidden).to(d)  # [B, T, D*H]
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         mask_t = mask.t().float().contiguous()  # [T, B]
@@ -103,6 +112,7 @@ class SpeechEncoder(nn.Module):
         pool: str = "mean_max",
         n_classes: int = 0,
         norm_out: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if pool not in ("mean", "max", "mean_max"):
@@ -113,13 +123,14 @@ class SpeechEncoder(nn.Module):
         self.conv_padding = conv_padding
         self.pool = pool
         self.norm_out = norm_out
+        self.dtype = dtype
         chans = (n_mels, *conv_channels)
         self.convs = nn.ModuleList(
-            nn.Conv1d(i, o, conv_kernel, stride=conv_stride, bias=False)
+            Conv1d(i, o, conv_kernel, stride=conv_stride, bias=False, dtype=dtype)
             for i, o in zip(chans[:-1], chans[1:])
         )
-        self.bns = nn.ModuleList(BatchNorm(o) for o in conv_channels)
-        self.rnn = BiGRU(chans[-1], rnn_hidden, rnn_layers, bidirectional)
+        self.bns = nn.ModuleList(BatchNorm(o, dtype=dtype) for o in conv_channels)
+        self.rnn = BiGRU(chans[-1], rnn_hidden, rnn_layers, bidirectional, dtype)
         rnn_out = rnn_hidden * (2 if bidirectional else 1)
         pooled = 2 * rnn_out if pool == "mean_max" else rnn_out
         self.head = nn.Linear(pooled, emb_dim)
@@ -130,14 +141,14 @@ class SpeechEncoder(nn.Module):
         if mask is None:
             mask = torch.ones((b, t), dtype=torch.bool, device=feats.device)
         # zero padded frames so they cannot leak through the receptive field
-        x = (feats * mask[:, :, None].to(feats.dtype)).transpose(1, 2)  # [B, C, T]
+        x = (feats.to(self.dtype) * mask[:, :, None].to(self.dtype)).transpose(1, 2)  # [B, C, T]
         for conv, bn in zip(self.convs, self.bns):
             lo, hi = conv_pads(x.shape[-1], self.conv_kernel, self.conv_stride,
                                self.conv_padding)
             x = torch.relu(bn(conv(F.pad(x, (lo, hi)))))
             # a pooled step is valid if its first source frame was valid
             mask = mask[:, :: self.conv_stride][:, : x.shape[-1]]
-        x = self.rnn(x.transpose(1, 2), mask)  # [B, T', 2H]
+        x = self.rnn(x.transpose(1, 2), mask).float()  # [B, T', 2H], pooled in float32
 
         m = mask[:, :, None].to(x.dtype)
         nvalid = m.sum(dim=1)  # 0 for an all-masked utterance

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from s2i_tpu_torch.audio.frontend import extract_features, frontend_params_from_cfg
-from s2i_tpu_torch.device import resolve_device
+from s2i_tpu_torch.device import compute_dtype, resolve_device
 from s2i_tpu_torch.models.encoder import SpeechEncoder
 from s2i_tpu_torch.models.generator import GNet
 from s2i_tpu_torch.utils.checkpoint import CheckpointManager
@@ -38,6 +38,7 @@ def build_encoder(cfg, joint: bool = False) -> SpeechEncoder:
         pool=str(e.POOL),
         n_classes=0 if joint or not bool(e.CLS_HEAD) else int(e.N_CLASSES),
         norm_out=bool(e.NORM_OUT),
+        dtype=compute_dtype(cfg),
     )
 
 
@@ -49,6 +50,8 @@ def build_generator(cfg) -> GNet:
         t_dim=int(cfg.TEXT.DIMENSION),
         branch_num=int(cfg.TREE.BRANCH_NUM),
         num_res=int(cfg.GAN.R_NUM),
+        dtype=compute_dtype(cfg),
+        up_mode=str(cfg.GAN.UPSAMPLE_MODE),
     )
 
 
@@ -64,7 +67,9 @@ class SpeechToImage:
     ``enc_state_dict`` / ``g_state_dict`` come from ``bridge`` (or from
     ``state_dict()`` of modules built by :func:`build_encoder` /
     :func:`build_generator`); ``joint`` says the encoder came from a joint
-    checkpoint. Computes in float32 (TF32 off, see ``device.resolve_device``).
+    checkpoint. Computes in ``DTYPE.COMPUTE`` (``device.compute_dtype``;
+    the frontend in float32, TF32 off, see ``device.resolve_device``) and
+    returns float32 images.
     """
 
     def __init__(self, cfg, enc_state_dict: dict, g_state_dict: dict,

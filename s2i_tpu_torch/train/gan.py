@@ -18,10 +18,15 @@ One step, in the JAX package's order (``make_train_step``):
   4. Polyak average (EMA) of the generator's parameters, CA included, with
      decay 0 for the first ``TRAIN.EMA_WARMUP`` steps.
 
-The GAN layout levers of the JAX package (``GAN.S2D``, ``GAN.S2D_MID``,
-``GAN.D_TRUNK_BATCH``, ``GAN.UPSAMPLE_MODE``, ``GAN.REMAT``) are the same
-math in another layout; the port computes the plain formulation whatever
-they say, in float32 whatever ``DTYPE.COMPUTE`` says.
+The models compute in ``DTYPE.COMPUTE`` (bfloat16 in the shipped cfgs)
+with float32 parameters, at the JAX package's cast points
+(``models/layers.py``); losses, the CA sample and KL, images and logits
+are float32. ``GAN.UPSAMPLE_MODE`` picks the up-convolution's numerics.
+``TRAIN.MOMENT_DTYPE=bfloat16`` keeps Adam's moments of the large leaves
+in bfloat16 (:class:`CastMomentAdam`). The layout levers of the JAX package
+(``GAN.S2D``, ``GAN.S2D_MID``, ``GAN.D_TRUNK_BATCH``, ``GAN.REMAT``) are the
+same math in another layout; the port computes the plain formulation
+whatever they say.
 
     state = init_state(cfg)                      # on the card, seeded
     metrics = train_step(state, batch)           # {"d_loss", "g_loss", ...}
@@ -42,7 +47,7 @@ from typing import Callable
 import torch
 from torch import nn
 
-from s2i_tpu_torch.device import resolve_device
+from s2i_tpu_torch.device import compute_dtype, moment_dtype, resolve_device
 from s2i_tpu_torch.models.ca_net import kl_divergence
 from s2i_tpu_torch.models.discriminator import DNet, build_discriminators
 from s2i_tpu_torch.models.encoder import SpeechEncoder
@@ -65,7 +70,7 @@ def build_models(cfg, joint: bool = False) -> GanModels:
     """G (with CA), one D per scale and, in joint mode, the speech encoder
     without a class head; all on the CPU, not initialized."""
     ds = build_discriminators(int(cfg.TREE.BRANCH_NUM), int(cfg.GAN.DF_DIM),
-                              int(cfg.GAN.EMBEDDING_DIM), bool(cfg.GAN.B_CONDITION))
+                              int(cfg.GAN.EMBEDDING_DIM), bool(cfg.GAN.B_CONDITION), compute_dtype(cfg))
     return GanModels(build_generator(cfg), ds, build_encoder(cfg, joint=True) if joint else None)
 
 
@@ -86,21 +91,80 @@ def init_weights(g: GNet, ds: list[DNet], gen: torch.Generator) -> None:
             m.running_var.fill_(1.0)
 
 
+class CastMomentAdam(torch.optim.Adam):
+    """``torch.optim.Adam`` whose leaves of at least ``min_size`` elements
+    keep ``exp_avg`` and ``exp_avg_sq`` in ``moment_dtype``, the JAX
+    package's ``_scale_by_adam_cast`` (``TRAIN.MOMENT_DTYPE``): such a
+    leaf's update runs in float32 with optax's formula (the bias corrected
+    by the count, eps outside the square root) and its moments are cast
+    back. Smaller leaves take ``torch.optim.Adam``'s own step, whose
+    moments keep the parameter's type (torch's foreach and fused Adam need
+    that). The state_dict has ``torch.optim.Adam``'s layout, the large
+    leaves' moments in ``moment_dtype``."""
+
+    def __init__(self, params, lr: float, betas: tuple[float, float], eps: float,
+                 moment_dtype: torch.dtype, min_size: int):
+        super().__init__(params, lr=lr, betas=betas, eps=eps)
+        self.moment_dtype, self.min_size = moment_dtype, min_size
+
+    def _cast(self, p: torch.Tensor) -> bool:
+        return p.numel() >= self.min_size
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("CastMomentAdam takes no closure")
+        cast = [p for group in self.param_groups for p in group["params"] if p.grad is not None and self._cast(p)]
+        grads = [p.grad for p in cast]
+        for p in cast:  # torch.optim.Adam skips a parameter with no gradient
+            p.grad = None
+        try:
+            super().step()
+        finally:
+            for p, grad in zip(cast, grads):
+                p.grad = grad
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None or not self._cast(p):
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.tensor(0.0)
+                    st["exp_avg"] = torch.zeros_like(p, dtype=self.moment_dtype)
+                    st["exp_avg_sq"] = torch.zeros_like(p, dtype=self.moment_dtype)
+                g = p.grad.float()
+                m = b1 * st["exp_avg"].float() + (1.0 - b1) * g
+                v = b2 * st["exp_avg_sq"].float() + (1.0 - b2) * g.square()
+                st["step"] += 1
+                bc1, bc2 = 1.0 - b1 ** st["step"], 1.0 - b2 ** st["step"]
+                p.add_(-group["lr"] * ((m / bc1) / (torch.sqrt(v / bc2) + group["eps"])))
+                st["exp_avg"].copy_(m)
+                st["exp_avg_sq"].copy_(v)
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        super().load_state_dict(state_dict)  # casts every moment to its parameter's type
+        for p, st in self.state.items():
+            if self._cast(p):
+                for k in ("exp_avg", "exp_avg_sq"):
+                    st[k] = st[k].to(self.moment_dtype)
+
+
 def make_optimizer(cfg, params, lr: float) -> torch.optim.Optimizer:
     """``TRAIN.OPTIMIZER``: Adam with the cfg's betas (optax ``adam``: eps
-    1e-8 outside the square root) or plain SGD."""
+    1e-8 outside the square root) or plain SGD. ``TRAIN.MOMENT_DTYPE``
+    float32 is ``torch.optim.Adam``; bfloat16 is :class:`CastMomentAdam`
+    over leaves of at least ``TRAIN.MOMENT_DTYPE_MIN_SIZE`` elements."""
     name = str(cfg.TRAIN.OPTIMIZER).lower()
     if name == "sgd":
         return torch.optim.SGD(params, lr=lr)
     if name != "adam":
         raise ValueError(f"unknown TRAIN.OPTIMIZER {name!r}")
-    mdt = str(cfg.TRAIN.MOMENT_DTYPE).lower()
-    if mdt not in ("", "float32", "fp32"):
-        raise NotImplementedError(
-            f"TRAIN.MOMENT_DTYPE={mdt!r}: the port keeps Adam's moments in float32"
-        )
     betas = (float(cfg.TRAIN.ADAM_BETA1), float(cfg.TRAIN.ADAM_BETA2))
-    return torch.optim.Adam(params, lr=lr, betas=betas, eps=1e-8)
+    mdt = moment_dtype(cfg)
+    if mdt == torch.float32:
+        return torch.optim.Adam(params, lr=lr, betas=betas, eps=1e-8)
+    return CastMomentAdam(params, lr, betas, 1e-8, mdt, int(cfg.TRAIN.MOMENT_DTYPE_MIN_SIZE))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -330,7 +394,7 @@ def d_phase(state: GanTrainState, batch: dict, fwd: GForward) -> dict:
     cond_wrong = wrong_conditions(cond, batch.get("class_id"), sc.wrong_pair)
     if not sc.b_condition:
         cond = cond_wrong = None
-    total = fwd.mu.new_zeros(())
+    total = fwd.mu.new_zeros((), dtype=torch.float32)
     mets = {}
     for i, (d, real, fake) in enumerate(zip(state.models.ds, batch["images"], fwd.fakes)):
         d.train()
@@ -355,7 +419,7 @@ def _adversarial(state: GanTrainState, fwd: GForward) -> torch.Tensor:
     for d in ds:
         d.requires_grad_(False)
     try:
-        adv = fwd.mu.new_zeros(())
+        adv = fwd.mu.new_zeros((), dtype=torch.float32)
         for d, fake in zip(ds, fwd.fakes):
             d.train()
             cond_f, uncond_f = d(fake, fwd.mu if state.sc.b_condition else None)

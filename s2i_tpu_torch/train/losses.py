@@ -2,7 +2,8 @@
 per-scale D loss over real / wrong-pair / fake logits, the generator's
 adversarial term, the StackGAN-v2 color-consistency regularizer and the
 distillation loss. Logits are raw: BCE-with-logits is the reference's
-sigmoid + BCE in a stable form."""
+sigmoid + BCE in a stable form. Every loss computes in float32 whatever
+type its inputs come in, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ def discriminator_loss(cond_real, uncond_real, cond_wrong, uncond_wrong, cond_fa
     condition) counts as fake for the conditional head and as real for the
     unconditional one. Metrics ``real_acc`` / ``fake_acc`` of the
     unconditional head."""
-    loss = uncond_real.new_zeros(())
+    loss = uncond_real.new_zeros((), dtype=torch.float32)
     if cond_real is not None:
         loss = bce_logits(cond_real, 1.0) + bce_logits(cond_wrong, 0.0) + bce_logits(cond_fake, 0.0)
     if uncond_coeff > 0.0:
@@ -35,7 +36,7 @@ def discriminator_loss(cond_real, uncond_real, cond_wrong, uncond_wrong, cond_fa
 
 def generator_adversarial_loss(cond_fake, uncond_fake, uncond_coeff: float = 1.0) -> torch.Tensor:
     """One scale's adversarial G term (non-saturating BCE toward 'real')."""
-    loss = uncond_fake.new_zeros(())
+    loss = uncond_fake.new_zeros((), dtype=torch.float32)
     if cond_fake is not None:
         loss = bce_logits(cond_fake, 1.0)
     if uncond_coeff > 0.0:
@@ -57,7 +58,7 @@ def color_consistency_loss(imgs: list[torch.Tensor], lambda_mu: float = 1.0,
                            lambda_cov: float = 5.0) -> torch.Tensor:
     """StackGAN-v2 color consistency between consecutive stages: match the
     per-image channel means and covariances."""
-    loss = imgs[0].new_zeros(())
+    loss = imgs[0].new_zeros((), dtype=torch.float32)
     stats = [_channel_stats(i) for i in imgs]
     for (mu1, cov1), (mu2, cov2) in zip(stats[:-1], stats[1:]):
         loss = loss + lambda_mu * (mu1 - mu2).square().sum(-1).mean() \

@@ -228,7 +228,7 @@ def test_logmel_rejects_frames_past_the_signal(card):
 def test_gan_step_on_the_card_matches_cpu(card):
     cfg = config.apply_overrides(config.default_cfg(), [
         "TREE.BRANCH_NUM=2", "GAN.GF_DIM=4", "GAN.DF_DIM=4", "GAN.Z_DIM=8", "GAN.EMBEDDING_DIM=16",
-        "GAN.R_NUM=1", "TEXT.DIMENSION=32", "TRAIN.COEFF.COLOR_LOSS=50.0"])
+        "GAN.R_NUM=1", "TEXT.DIMENSION=32", "TRAIN.COEFF.COLOR_LOSS=50.0", "DTYPE.COMPUTE=float32"])
     rng = np.random.default_rng(0)
     batch = {"images": (rng.integers(0, 256, (4, 128, 128, 3), dtype=np.uint8),),
              "embedding": rng.standard_normal((4, 32)).astype(np.float32), "class_id": np.arange(4)}
@@ -429,6 +429,7 @@ def test_gru_wrapper_rejects_mixed_devices(card):
 
 def test_pipeline_on_the_card_matches_cpu(card):
     cfg = config.default_cfg()
+    cfg.DTYPE.COMPUTE = "float32"
     cfg.TREE.BRANCH_NUM = 2
     cfg.GAN.GF_DIM = 4
     cfg.GAN.Z_DIM = 6

@@ -373,8 +373,13 @@ def test_init_is_seeded_and_noise_follows_the_step():
 def test_optimizer_choices():
     cfg, _ = cfgs("TREE.BRANCH_NUM=1", "TRAIN.OPTIMIZER=sgd")
     assert isinstance(gan.init_state(cfg, device="cpu").g_opt, torch.optim.SGD)
+    cfg, _ = cfgs("TREE.BRANCH_NUM=1")
+    assert type(gan.init_state(cfg, device="cpu").g_opt) is torch.optim.Adam  # MOMENT_DTYPE float32
     cfg, _ = cfgs("TREE.BRANCH_NUM=1", "TRAIN.MOMENT_DTYPE=bfloat16")
-    with pytest.raises(NotImplementedError, match="MOMENT_DTYPE"):
+    opt = gan.init_state(cfg, device="cpu").g_opt
+    assert isinstance(opt, gan.CastMomentAdam) and opt.moment_dtype == torch.bfloat16
+    cfg, _ = cfgs("TREE.BRANCH_NUM=1", "TRAIN.MOMENT_DTYPE=float16")
+    with pytest.raises(ValueError, match="MOMENT_DTYPE='float16'"):
         gan.init_state(cfg, device="cpu")
 
 
