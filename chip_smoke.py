@@ -83,6 +83,7 @@ names it, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import copy
 import io
 import itertools
 import json
@@ -112,8 +113,11 @@ from s2i_tpu_torch.audio.wavio import write_wav
 from s2i_tpu_torch.data import SyntheticGanDataset, synthetic_wavs
 from s2i_tpu_torch.data.pipeline import Prefetcher
 from s2i_tpu_torch.data.stackgan import GanEpochIterator, SpeechEpochIterator, StackGanSplit
-from s2i_tpu_torch.device import resolve_device
-from s2i_tpu_torch.models.layers import BatchNorm
+from s2i_tpu_torch.device import compute_dtype, resolve_device
+from s2i_tpu_torch.models import encoder as encoder_model
+from s2i_tpu_torch.models.discriminator import DLogits
+from s2i_tpu_torch.models.generator import ToRGB
+from s2i_tpu_torch.models.layers import BatchNorm, Conv2d
 from s2i_tpu_torch.ops import build, gru_kernel, mel_kernel
 from s2i_tpu_torch.pipeline import SpeechToImage, build_encoder, build_generator
 from s2i_tpu_torch.serving import make_server
@@ -203,6 +207,11 @@ TOL_GAN_STATS = 1e-4
 # step medians (ms) of the train, gan and joint phases on batches made ahead
 # in host memory, for the data phase to print beside its loader-fed steps
 MADE_AHEAD_MS: dict[str, float] = {}
+# the float32 phases' results, for the bf16 phase: each path's times, parts
+# and peak memory ("serve", "train", "gan", "joint"), the serve phase's
+# weights, batch and CPU images ("serve_ref"), the gan phase's CPU float32
+# first-step record ("gan_cpu_step")
+F32: dict[str, dict] = {}
 
 
 def log(msg: str) -> None:
@@ -702,6 +711,8 @@ def serve_wavs(p: FrontendParams) -> tuple[np.ndarray, np.ndarray]:
 
 
 def phase_serve(card: str) -> dict[str, int]:
+    """The birds serve path in float32 (``DTYPE.COMPUTE`` set against the
+    cfg's bfloat16; the bf16 phase runs the cfg's own type)."""
     cfg = config.cfg_from_file("cfg/birds_3stages.yml")
     cfg.DTYPE.COMPUTE = "float32"
     p = frontend_params_from_cfg(cfg.AUDIO)
@@ -734,7 +745,7 @@ def phase_serve(card: str) -> dict[str, int]:
         size = (int.from_bytes(png[16:20], "big"), int.from_bytes(png[20:24], "big"))
         if status != 200 or png[:8] != b"\x89PNG\r\n\x1a\n" or size != (256, 256):
             raise AssertionError(f"bad answer: status {status}, PNG {png[:8]!r} {size}")
-    log(f"[serve] {len(answers)} POSTs -> 200 + 256x256 PNG in {time.time() - t0:.1f} s "
+    log(f"[serve] DTYPE.COMPUTE float32: {len(answers)} POSTs -> 200 + 256x256 PNG in {time.time() - t0:.1f} s "
         f"(server start and warmup included); launches {launches}")
     if not (launches["mel_fused"] and launches["gru_fwd"]):
         raise AssertionError(f"a kernel of the serving path never launched: {launches}")
@@ -790,6 +801,8 @@ def phase_serve(card: str) -> dict[str, int]:
         f"launches per batch mel_fused {per_batch[0]:g} gru_fwd {per_batch[1]:g}")
     if per_batch != (1, 1):
         raise AssertionError(f"launches per batch {per_batch}, expected K1 and K2 once each")
+    F32["serve"] = {"times": times, "parts": parts, "peak": peak}
+    F32["serve_ref"] = {"enc_sd": enc_sd, "g_sd": g_sd, "wavs": wavs, "lens": lens_np, "z": z, "img_cpu": img_p}
     return launches
 
 
@@ -829,11 +842,12 @@ def step_parts_ms(state, raw: dict, p: FrontendParams) -> dict[str, float]:
 
 def phase_train(card: str) -> dict[str, int]:
     cfg = config.cfg_from_file("cfg/pretrain_encoder_birds.yml")
+    cfg.DTYPE.COMPUTE = "float32"  # against the cfg's bfloat16: the bf16 phase runs that
     cfg.ENCODER.LOG_EVERY = 1
     e = cfg.ENCODER
     p = frontend_params_from_cfg(cfg.AUDIO)
     raw = train_batch(p, int(e.N_CLASSES), int(cfg.TEXT.DIMENSION))
-    log(f"[train] {cfg.CONFIG_NAME}: batch {e.BATCH_SIZE}, {p.max_samples} samples -> {p.max_frames} frames "
+    log(f"[train] {cfg.CONFIG_NAME}, DTYPE.COMPUTE float32: batch {e.BATCH_SIZE}, {p.max_samples} samples -> {p.max_frames} frames "
         f"x {p.n_mels} mels, convs {list(e.CONV_CHANNELS)} k{e.CONV_KERNEL} s{e.CONV_STRIDE}, "
         f"bi-GRU H={e.RNN_HIDDEN}, {e.N_CLASSES} classes, CE_COEFF {e.CE_COEFF}, Adam lr {e.LR}; "
         f"wav lengths {raw['wav_len'].min()}..{raw['wav_len'].max()}")
@@ -906,6 +920,7 @@ def phase_train(card: str) -> dict[str, int]:
     parts = [step_parts_ms(state, raw, p) for _ in range(3)]
     med = {k: float(np.median([pt[k] for pt in parts])) for k in parts[0]}
     MADE_AHEAD_MS["encoder"] = float(np.median(times))
+    F32["train"] = {"times": times, "parts": med, "peak": peak}
     log(f"[train] {card}: batch {TRAIN_BATCH} step (featurize + encoder_train_step) ms "
         f"median {np.median(times):.2f} min {min(times):.2f} max {max(times):.2f} (n={len(times)}); "
         f"device ms (median of 3) " + " ".join(f"{k} {v:.3f}" for k, v in med.items())
@@ -951,10 +966,14 @@ def phase_mel_ab(card: str) -> dict[str, int]:
     return launches
 
 
-def gan_cfg(path: str, batch: int):
+def gan_cfg(path: str, batch: int, compute: str | None = None):
+    """``path`` on synthetic data at ``batch``; ``compute`` replaces the
+    cfg's DTYPE.COMPUTE when given."""
     cfg = config.cfg_from_file(path)
     cfg.DATASET_NAME = "synthetic"
     cfg.TRAIN.BATCH_SIZE = batch
+    if compute:
+        cfg.DTYPE.COMPUTE = compute
     return cfg
 
 
@@ -965,9 +984,9 @@ def step_modules(st: gan.GanTrainState) -> dict:
     return mods
 
 
-def first_step_inputs(path: str, batch: int = CHECK_BATCH) -> tuple:
-    """(cfg at ``batch``, host batch, z, eps) of the first-step check."""
-    cfg = gan_cfg(path, batch)
+def first_step_inputs(path: str, compute: str | None = None, batch: int = CHECK_BATCH) -> tuple:
+    """(cfg at ``batch`` in ``compute``, host batch, z, eps) of the first-step check."""
+    cfg = gan_cfg(path, batch, compute)
     raw = next(iter(cli.synthetic_gan_batches(cfg)(0)))
     rng = np.random.default_rng(SEED + 7)
     z = rng.standard_normal((batch, int(cfg.GAN.Z_DIM))).astype(np.float32)
@@ -1016,11 +1035,12 @@ def step_errors(got: dict, want: dict) -> dict:
             "net": {part: (d2 / n2) ** 0.5 for part, (d2, n2) in sums.items()}}
 
 
-def gan_first_step_vs_cpu(path: str) -> gan.GanTrainState:
-    """The first step of the cfg at full width and batch CHECK_BATCH, on the
-    card and on the CPU, from the same seeded weights, batch and noise;
-    raises unless they agree. Returns the card's state, one step in."""
-    cfg, raw, z, eps = first_step_inputs(path)
+def gan_first_step_vs_cpu(path: str) -> tuple[gan.GanTrainState, dict]:
+    """The first step of the cfg at full width and batch CHECK_BATCH in
+    float32, on the card and on the CPU, from the same seeded weights, batch
+    and noise; raises unless they agree. Returns the card's state, one step
+    in, and the CPU's record."""
+    cfg, raw, z, eps = first_step_inputs(path, "float32")
     st, rec = first_step(cfg, raw, z, eps, "cuda")
     _, rec_cpu = first_step(cfg, raw, z, eps, "cpu")
     e = step_errors(rec, rec_cpu)
@@ -1040,7 +1060,7 @@ def gan_first_step_vs_cpu(path: str) -> gan.GanTrainState:
             and median <= TOL_GAN_GRAD_MEDIAN and e["tensor"][worst["tensor"]] <= TOL_GAN_GRAD_TENSOR
             and e["stats"][worst["stats"]] <= TOL_GAN_STATS):
         raise AssertionError("the card's GAN step disagrees with the plain path")
-    return st
+    return st, rec_cpu
 
 
 def gan_step_parts_ms(st: gan.GanTrainState, raw: dict, p: FrontendParams, joint: bool) -> dict[str, float]:
@@ -1071,12 +1091,12 @@ def phase_gan(card: str, path: str) -> dict[str, int]:
     """GAN training of ``path`` at full width: the counted run through
     run_gan_training, the first step card vs CPU, then step time, parts and
     peak memory at batch GAN_BATCH."""
-    cfg = gan_cfg(path, GAN_BATCH)
+    cfg = gan_cfg(path, GAN_BATCH, "float32")  # against the cfg's bfloat16: the bf16 phase runs that
     joint = bool(cfg.TRAIN.JOINT_FT)
     tag = "joint" if joint else "gan"
     g, c = cfg.GAN, cfg.TRAIN.COEFF
     p = frontend_params_from_cfg(cfg.AUDIO)
-    log(f"[{tag}] {path}: batch {cfg.TRAIN.BATCH_SIZE}, {cfg.TREE.BRANCH_NUM} stages to "
+    log(f"[{tag}] {path}, DTYPE.COMPUTE float32: batch {cfg.TRAIN.BATCH_SIZE}, {cfg.TREE.BRANCH_NUM} stages to "
         f"{64 * 2 ** (int(cfg.TREE.BRANCH_NUM) - 1)} px, GF {g.GF_DIM} DF {g.DF_DIM} R_NUM {g.R_NUM} Z {g.Z_DIM} "
         f"CA {g.EMBEDDING_DIM} TEXT {cfg.TEXT.DIMENSION}, KL {c.KL} COLOR {c.COLOR_LOSS} DISTILL {c.DISTILL}, "
         f"EMA {cfg.TRAIN.EMA_G} warmup {cfg.TRAIN.EMA_WARMUP}, Adam lr {cfg.TRAIN.GENERATOR_LR} betas "
@@ -1107,7 +1127,9 @@ def phase_gan(card: str, path: str) -> dict[str, int]:
         raise AssertionError(f"launches {launches}, expected {want}")
     shutil.rmtree(run_dir)  # its ~1.5 GB checkpoint: the loop phase tests checkpoints
 
-    st = gan_first_step_vs_cpu(path)
+    st, rec_cpu = gan_first_step_vs_cpu(path)
+    if not joint:
+        F32["gan_cpu_step"] = rec_cpu
 
     # step time at batch GAN_BATCH on host batches made ahead (featurize,
     # the wav → log-mel on the card, is part of a joint step)
@@ -1132,6 +1154,7 @@ def phase_gan(card: str, path: str) -> dict[str, int]:
     med = {k: float(np.median([pt[k] for pt in parts])) for k in parts[0]}
     t_med = float(np.median(times))
     MADE_AHEAD_MS[tag] = t_med
+    F32[tag] = {"times": times, "parts": med, "peak": peak}
     log(f"[{tag}] {card}: batch {GAN_BATCH} step ({'featurize + ' if joint else ''}train_step) ms "
         f"median {t_med:.2f} min {min(times):.2f} max {max(times):.2f} (n={len(times)}), "
         f"{GAN_BATCH / t_med * 1e3:.1f} images/s; device ms (median of 3) "
@@ -1182,7 +1205,8 @@ def phase_loop(card: str) -> dict[str, int]:
     """The trainer loop of cfg/birds_joint_ft.yml at full width and batch
     GAN_BATCH, in a temporary run directory deleted at the end: resume,
     checkpoints, BN recalc, sampling, and serving the run's checkpoint."""
-    cfg = gan_cfg("cfg/birds_joint_ft.yml", GAN_BATCH)
+    cfg = gan_cfg("cfg/birds_joint_ft.yml", GAN_BATCH)  # the cfg's own DTYPE.COMPUTE, bfloat16
+    cfg.TRAIN.MOMENT_DTYPE = "bfloat16"  # the resume covers Adam's bfloat16 moments too
     p = frontend_params_from_cfg(cfg.AUDIO)
     recalc = int(cfg.EVAL.EMA_BN_RECALC)
     factory = cli.gan_batch_factory(cfg)
@@ -1210,7 +1234,8 @@ def phase_loop(card: str) -> dict[str, int]:
         got = to_host(resumed.state.state_dict())
         t2 = time.time()
         train_launches = read_counts()
-        log(f"[loop] {card}, {cfg.CONFIG_NAME}: {LOOP_STEPS} steps straight in {t1 - t0:.1f} s, {half} + "
+        log(f"[loop] {card}, {cfg.CONFIG_NAME}, DTYPE.COMPUTE {cfg.DTYPE.COMPUTE}, TRAIN.MOMENT_DTYPE "
+            f"{cfg.TRAIN.MOMENT_DTYPE}: {LOOP_STEPS} steps straight in {t1 - t0:.1f} s, {half} + "
             f"{resumed.state.step - half} steps stopped and resumed in {t2 - t1:.1f} s (set-up and saves "
             f"included); launches {train_launches}")
         if half != LOOP_STEPS // 2 or resumed.state.step != LOOP_STEPS or straight.state.step != LOOP_STEPS:
@@ -1469,12 +1494,22 @@ def phase_data(card: str) -> dict[str, int]:
         test = StackGanSplit(tree, "test")
         row = (DATA_CLASSES - 1, DATA_CAPTIONS - 1)  # the last test image's last caption
         wav = test.load_wav(*row, p.sample_rate)[: p.max_samples]
+        # in bfloat16 (the cfg's) extraction at batch 64 and the pipeline at
+        # batch 1 may take other cuDNN algorithms, and each rounds to
+        # bfloat16 where the other need not: the row may sit no further from
+        # the float32 pipeline's embedding than twice the bfloat16
+        # pipeline's does on the same WAV (the rule of the bf16 phase)
+        f32_cfg = config.apply_overrides(copy.deepcopy(enc_cfg), ["DTYPE.COMPUTE=float32"])
+        pipe32 = SpeechToImage(f32_cfg, enc_sd, build_generator(f32_cfg).state_dict(), device="cuda")
         with torch.no_grad():
-            one = embedding(pipe.encoder(*extract_features(wav[None], pipe.p, [len(wav)], device="cuda")))
-        ext_err = float(np.abs(one[0].cpu().numpy() - embs["test"][row]).max())
-        del pipe
-        if not ext_err <= TOL_FEATS:
-            raise AssertionError(f"extracted row vs the pipeline's embedding: {ext_err} > {TOL_FEATS}")
+            one, one32 = (embedding(q.encoder(*extract_features(wav[None], q.p, [len(wav)], device="cuda")))[0]
+                          .cpu().numpy() for q in (pipe, pipe32))
+        ext_err = float(np.abs(one - embs["test"][row]).max())
+        ext_err32 = float(np.abs(one32 - embs["test"][row]).max())
+        ext_bound = 2 * float(np.abs(one - one32).max())
+        del pipe, pipe32
+        if not ext_err32 <= ext_bound:
+            raise AssertionError(f"extracted row vs the float32 pipeline's embedding: {ext_err32} > {ext_bound}")
 
         counted("train", ["train", "--cfg", "cfg/birds_3stages.yml", "--set", "TRAIN.MAX_EPOCH=2"])
         gan_run = only_run(runs, "birds_3stages_train_")
@@ -1505,8 +1540,9 @@ def phase_data(card: str) -> dict[str, int]:
                        "mel_framed": 0} for name, n in per_step.items()}
         log(f"[data] {card}: through entrypoints.main: pretrain {steps} steps {pre_s:.1f} s, extract "
             f"{n_ext} utterances in {ext_s:.1f} s ({n_ext / ext_s:.1f} utterances/s, model load and pickle "
-            f"writes included), extracted row vs the pipeline's embedding max_abs_err {ext_err:.3g} (tol "
-            f"{TOL_FEATS}), train {2 * gan_steps} + joint {gan_steps} steps on the card, sample {n_samples} x "
+            f"writes included), extracted row vs the pipeline's embedding max_abs_err {ext_err:.3g} (float32's "
+            f"fixed tol {TOL_FEATS}), vs the float32 pipeline's {ext_err32:.3g} (bound {ext_bound:.3g}: twice "
+            f"the bfloat16 pipeline's), train {2 * gan_steps} + joint {gan_steps} steps on the card, sample {n_samples} x "
             f"{len(names)} PNGs in {sample_s:.1f} s; launches " + "; ".join(f"{k} {v}" for k, v in counts.items()))
         if counts != want:
             raise AssertionError(f"launches {counts}, expected {want}: K1, K2 (+ K3) once per step or batch")
@@ -1553,6 +1589,226 @@ def phase_data(card: str) -> dict[str, int]:
     return {k: sum(c[k] for c in counts.values()) for k in KERNELS}
 
 
+def dtype_audit(models: gan.GanModels, run) -> dict[str, set]:
+    """The output types of ``models`` during ``run()``, by point: G's and
+    the Ds' conv and BN outputs, the images (to-RGB), the logits, the
+    embedding and what the recurrence is given ("xw")."""
+    seen: dict[str, set] = {}
+
+    def hook(point):
+        return lambda m, args, out: seen.setdefault(point, set()).add(str(out.dtype).replace("torch.", ""))
+
+    points = []
+    for tag, net in (("g", models.g), *(("d", d) for d in models.ds)):
+        for m in net.modules():
+            kind = ("conv" if isinstance(m, Conv2d) else "bn" if isinstance(m, BatchNorm) else None)
+            if kind:
+                points.append((m, f"{tag} {kind}"))
+            elif isinstance(m, ToRGB):
+                points.append((m, "images"))
+            elif isinstance(m, DLogits):
+                points.append((m, "logits"))
+    if models.encoder is not None:
+        points.append((models.encoder, "embedding"))
+    handles = [m.register_forward_hook(hook(name)) for m, name in points]
+    scan = encoder_model.gru_scan
+
+    def scan_audit(xw, *args):
+        seen.setdefault("xw", set()).add(str(xw.dtype).replace("torch.", ""))
+        return scan(xw, *args)
+
+    encoder_model.gru_scan = scan_audit
+    try:
+        run()
+    finally:
+        encoder_model.gru_scan = scan
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def timed_steps(step, n: int) -> tuple[list[float], float]:
+    """Host ms of ``n`` synchronized calls of ``step`` after 2 of warm-up,
+    and the peak device memory (MiB) over them."""
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times, torch.cuda.max_memory_allocated() / 2**20
+
+
+def beside(tag: str, times: list[float], parts: dict[str, float], peak: float, ref: dict) -> str:
+    """One path's bfloat16 numbers with the float32 phase's of the same run beside them."""
+    f = lambda ts: f"{np.median(ts):.2f} ({min(ts):.2f}-{max(ts):.2f})"  # noqa: E731
+    return (f"[bf16] {tag}: host ms median (min-max) bf16 {f(times)} | float32 {f(ref['times'])}; device ms "
+            + " ".join(f"{k} {v:.3f} | {ref['parts'].get(k, float('nan')):.3f}" for k, v in parts.items())
+            + f"; peak {peak:.0f} | {ref['peak']:.0f} MiB")
+
+
+def bf16_step_gate(what: str, got: dict, cpu: dict, ref: dict) -> None:
+    """The card's bfloat16 first step (``got``) against the CPU's float32
+    (``ref``), no further than twice the CPU's bfloat16 (``cpu``): the worst
+    loss term, each network's gradient (|diff| / |grad|) and the worst BN
+    running statistic."""
+    e_card, e_cpu = step_errors(got, ref), step_errors(cpu, ref)
+    if e_card["zero"]:
+        raise AssertionError(f"[bf16] {what}: parameters with no gradient on the card: {e_card['zero']}")
+    rows = {"loss": (max(e_card["loss"].values()), max(e_cpu["loss"].values())),
+            "stats": (max(e_card["stats"].values()), max(e_cpu["stats"].values())),
+            **{f"grad {k}": (v, e_cpu["net"][k]) for k, v in e_card["net"].items()}}
+    e16 = step_errors(got, cpu)
+    log(f"[bf16] {what}, first step at batch {CHECK_BATCH}, vs the CPU's float32 step: card bf16 | CPU bf16 (bound "
+        "2x) " + "; ".join(f"{k} {a:.3g} | {b:.3g}" for k, (a, b) in rows.items())
+        + f"; card vs CPU bf16: worst loss {max(e16['loss'].values()):.3g} (float32's fixed tol {TOL_GAN_LOSS}), "
+        "per network " + " ".join(f"{k} {v:.3g}" for k, v in e16["net"].items())
+        + f" (float32's {TOL_GAN_GRAD_NET}), BN stats {max(e16['stats'].values()):.3g} ({TOL_GAN_STATS})")
+    bad = [k for k, (a, b) in rows.items() if not a <= 2 * b]
+    if bad:
+        raise AssertionError(f"[bf16] {what}: the card's bf16 step is further from float32 than twice the "
+                             f"CPU's bf16 in {bad}")
+
+
+def phase_bf16(card: str) -> dict[str, int]:
+    """The shipped cfgs' own compute type, bfloat16 (DTYPE.COMPUTE), on each
+    training and serving path at full birds width, beside the float32
+    phases of the same run: a dtype audit of a joint step, serve images and
+    the first GAN step held against the CPU's bfloat16 and float32 (the
+    card's bfloat16 no further from the CPU's float32 than twice the CPU's
+    bfloat16), then serve (batch 8), encoder (64), GAN (24), joint (24) and
+    GAN with bfloat16 Adam moments (24): host times, device parts, peak
+    memory, K1/K2/K3 launches and the checkpoint's bytes."""
+    counts = {}
+
+    def counted(name: str, fn):
+        before = read_counts()
+        out = fn()
+        counts[name] = {k: v - before[k] for k, v in read_counts().items()}
+        return out
+
+    reset_counts()
+    # the dtype audit: one joint step at CHECK_BATCH on the card
+    cfg, raw, z, eps = first_step_inputs("cfg/birds_joint_ft.yml")
+    if compute_dtype(cfg) != torch.bfloat16:
+        raise AssertionError(f"cfg/birds_joint_ft.yml computes in {cfg.DTYPE.COMPUTE}, not bfloat16")
+    st = gan.init_state(cfg, device="cuda")
+    batch = cli.featurize(raw, frontend_params_from_cfg(cfg.AUDIO), "cuda")
+    seen = dtype_audit(st.models, lambda: gan.train_step(st, batch, z, eps))
+    want = {"g conv": {"bfloat16"}, "g bn": {"bfloat16"}, "d conv": {"bfloat16"}, "d bn": {"bfloat16"},
+            "images": {"float32"}, "logits": {"float32"}, "embedding": {"float32"}, "xw": {"float32"}}
+    log(f"[bf16] dtype audit of a joint step (forward hooks): {dict(sorted(seen.items()))}")
+    if seen != want:
+        raise AssertionError(f"[bf16] output types {seen}, expected {want}")
+    del st, batch
+
+    # serve: the serve phase's weights and batch in bfloat16, card and CPU
+    ref = F32["serve_ref"]
+    cfg = config.cfg_from_file("cfg/birds_3stages.yml")
+    pipe = SpeechToImage(cfg, ref["enc_sd"], ref["g_sd"], device="cuda")
+    img_c = counted("serve", lambda: pipe.generate(ref["wavs"], ref["lens"], z=ref["z"]))
+    img_p = SpeechToImage(cfg, ref["enc_sd"], ref["g_sd"], device="cpu").generate(ref["wavs"], ref["lens"],
+                                                                                  z=ref["z"])
+    err32, spread = (float(np.abs(x - ref["img_cpu"]).max()) for x in (img_c, img_p))
+    err16 = float(np.abs(img_c - img_p).max())
+    log(f"[bf16] serve images, max_abs_err vs the CPU's float32: card bf16 {err32:.3g}, CPU bf16 {spread:.3g} (bound "
+        f"{2 * spread:.3g}); card vs CPU bf16 {err16:.3g} (float32's fixed tol {TOL_IMAGE}); image std "
+        f"{img_c.std():.3f}")
+    if not (np.isfinite(img_c).all() and img_c.shape == (BATCH, 256, 256, 3) and img_c.dtype == np.float32):
+        raise AssertionError(f"bad bf16 images: {img_c.shape} {img_c.dtype}")
+    if not err32 <= 2 * spread:
+        raise AssertionError(f"[bf16] serve: card bf16 {err32} from float32, over twice the CPU's {spread}")
+    wavs_dev = torch.from_numpy(ref["wavs"]).cuda()
+    with torch.inference_mode():
+        fc, mc = extract_features(wavs_dev, pipe.p, wav_len=ref["lens"])
+        mu = pipe.g.ca_net(embedding(pipe.encoder(fc, mc)))[0]
+        zt = torch.from_numpy(ref["z"]).cuda()
+        parts = {"frontend": time_ms(lambda: extract_features(wavs_dev, pipe.p, wav_len=ref["lens"]), reps=10),
+                 "encoder": time_ms(lambda: pipe.encoder(fc, mc), reps=10),
+                 "generator": time_ms(lambda: pipe.g(zt, mu), reps=10)}
+    times, peak = timed_steps(lambda: pipe.generate(ref["wavs"], ref["lens"], seed=1, output_dtype="uint8"),
+                              LATENCY_RUNS)
+    log(beside(f"serve, batch {BATCH}", times, parts, peak, F32["serve"]))
+    del pipe
+
+    # the first GAN step: card and CPU in bfloat16 against the gan phase's CPU float32 step
+    cfg, raw, z, eps = first_step_inputs("cfg/birds_3stages.yml")
+    st, rec = first_step(cfg, raw, z, eps, "cuda")
+    _, rec_cpu = first_step(cfg, raw, z, eps, "cpu")
+    bf16_step_gate("GAN birds_3stages", rec, rec_cpu, F32["gan_cpu_step"])
+    del st
+
+    # encoder pretraining at batch 64
+    cfg = config.cfg_from_file("cfg/pretrain_encoder_birds.yml")
+    p = frontend_params_from_cfg(cfg.AUDIO)
+    raw = train_batch(p, int(cfg.ENCODER.N_CLASSES), int(cfg.TEXT.DIMENSION))
+    state = init_encoder_state(cfg, device="cuda")
+    mets = counted("train", lambda: [encoder_train_step(state, cli.featurize(raw, p, "cuda"))
+                                     for _ in range(TRAIN_STEPS)][-1])
+    times, peak = timed_steps(lambda: encoder_train_step(state, cli.featurize(raw, p, "cuda")), STEP_RUNS)
+    parts = [step_parts_ms(state, raw, p) for _ in range(3)]
+    parts = {k: float(np.median([pt[k] for pt in parts])) for k in parts[0]}
+    log(beside(f"encoder pretrain, batch {TRAIN_BATCH}", times, parts, peak, F32["train"])
+        + f"; loss after {state.step} steps {float(mets['loss']):.4f}")
+    if not np.isfinite(float(mets["loss"])):
+        raise AssertionError(f"[bf16] encoder loss not finite: {mets}")
+    del state
+
+    # GAN, joint and GAN with bfloat16 moments at batch 24
+    for tag, path, moments in (("gan", "cfg/birds_3stages.yml", "float32"),
+                               ("joint", "cfg/birds_joint_ft.yml", "float32"),
+                               ("gan_bf16_moments", "cfg/birds_3stages.yml", "bfloat16")):
+        cfg = gan_cfg(path, GAN_BATCH)
+        cfg.TRAIN.MOMENT_DTYPE = moments
+        joint = bool(cfg.TRAIN.JOINT_FT)
+        p = frontend_params_from_cfg(cfg.AUDIO)
+        st = gan.init_state(cfg, device="cuda")
+        stream = itertools.cycle(list(cli.synthetic_gan_batches(cfg)(1)))
+        step = (lambda: gan.train_step(st, cli.featurize(next(stream), p, "cuda"))) if joint else \
+            (lambda: gan.train_step(st, next(stream)))
+        mets = counted(tag, lambda: [step() for _ in range(GAN_STEPS)][-1])
+        times, peak = timed_steps(step, GAN_STEP_RUNS)
+        parts = [gan_step_parts_ms(st, next(stream), p, joint) for _ in range(3)]
+        parts = {k: float(np.median([pt[k] for pt in parts])) for k in parts[0]}
+        line = beside(f"{tag}, batch {GAN_BATCH}, Adam moments {moments}", times, parts, peak,
+                      F32["joint" if joint else "gan"])
+        if not all(np.isfinite(float(v)) for v in mets.values()):
+            raise AssertionError(f"[bf16] {tag}: metrics not finite: {mets}")
+        if moments == "bfloat16":
+            moments_now = [v for o in (st.g_opt, *st.d_opts) for s_ in o.state.values()
+                           for k_, v in s_.items() if k_ != "step"]
+            n_bf16 = sum(v.dtype == torch.bfloat16 for v in moments_now)
+            in_f32 = sum(2 * p_.numel() * 4 for o in (st.g_opt, *st.d_opts) for g in o.param_groups
+                         for p_ in g["params"])
+            os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+            d = tempfile.mkdtemp(prefix="chip_smoke_bf16_", dir=cfg.OUTPUT_DIR)
+            try:
+                CheckpointManager(d).save(st.step, st)
+                nbytes = os.path.getsize(os.path.join(d, f"{st.step}.pt"))
+            finally:
+                shutil.rmtree(d, ignore_errors=True)
+            line += (f"; checkpoint {nbytes} bytes, Adam moments {sum(v.numel() * v.element_size() for v in moments_now)}"
+                     f" bytes ({n_bf16} of {len(moments_now)} tensors bfloat16) against {in_f32} in float32")
+            if not n_bf16:
+                raise AssertionError("[bf16] TRAIN.MOMENT_DTYPE=bfloat16 kept no moment in bfloat16")
+        log(line + f"; g_loss after {st.step} steps {float(mets['g_loss']):.4f}")
+        del st, stream, step
+        torch.cuda.empty_cache()
+
+    log(f"[bf16] {card}: launches (K1/K2/K3/K4) " + "; ".join(
+        f"{k} {'/'.join(str(v[n]) for n in KERNELS)}" for k, v in counts.items()))
+    want = {"serve": (1, 1, 0), "train": (TRAIN_STEPS,) * 3, "gan": (0, 0, 0), "joint": (GAN_STEPS,) * 3,
+            "gan_bf16_moments": (0, 0, 0)}
+    for k, (n1, n2, n3) in want.items():
+        if counts[k] != {"mel_fused": n1, "gru_fwd": n2, "gru_bwd": n3, "mel_framed": 0}:
+            raise AssertionError(f"[bf16] {k}: launches {counts[k]}, expected K1/K2/K3 {n1}/{n2}/{n3}")
+    return read_counts()
+
+
 def main() -> None:
     name, smi = phase_device()
     phase_build()
@@ -1560,7 +1816,7 @@ def main() -> None:
     card = f"{name} ({smi})"
     paths = {"serve": phase_serve(card), "train": phase_train(card), "mel_ab": phase_mel_ab(card),
              "gan": phase_gan(card, "cfg/birds_3stages.yml"), "joint": phase_gan(card, "cfg/birds_joint_ft.yml"),
-             "loop": phase_loop(card), "data": phase_data(card)}
+             "bf16": phase_bf16(card), "loop": phase_loop(card), "data": phase_data(card)}
     rows = []
     for kname, (_, src, replaces) in KERNELS.items():
         by_path = {path: counts[kname] for path, counts in paths.items()}
