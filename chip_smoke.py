@@ -23,13 +23,13 @@ Phases, each of which passes or raises (nothing is caught):
                beside cuDNN's GRU on the same weights; the backward runs
                twice and must be bitwise repeatable, and its parts (gate
                SGEMM, chain, dW_h SGEMM + db_h) are timed;
-  4. serve   - the birds config (cfg/birds_3stages.yml) at full width with
+  4. serve   - the birds config (cfg/birds_3stages.yml), in float32, at full width with
                seeded random weights behind the HTTP server: POSTed WAVs come
                back as 256 px PNGs, the kernels' launch counters show that
                the requests went through them, and the same batch through the
                plain versions on the CPU (same weights, same z) agrees;
   5. train   - encoder distillation pretraining of
-               cfg/pretrain_encoder_birds.yml at full width (batch 64, 1024
+               cfg/pretrain_encoder_birds.yml in float32 at full width (batch 64, 1024
                frames, bi-GRU H=512, 200 classes) through run_encoder_pretrain
                on 64 ragged synthetic WAVs: featurize (K1) → encoder (K2) →
                loss → backward (K3) → Adam; the launch counters show each
@@ -41,7 +41,7 @@ Phases, each of which passes or raises (nothing is caught):
                standard-normal wav (then the birds serve batch) through the
                frame gather + K4, through K1 and through the plain version,
                each route's error against the plain one and its device time;
-  7. gan     - GAN training of cfg/birds_3stages.yml at full width (3 stages
+  7. gan     - GAN training of cfg/birds_3stages.yml in float32 at full width (3 stages
                to 256 px, batch 24) through run_gan_training on synthetic
                uint8 top-scale images: 3 counted steps, the first step card
                vs CPU at batch 4 (every loss term, gradient and BN statistic),
@@ -49,7 +49,20 @@ Phases, each of which passes or raises (nothing is caught):
   8. joint   - the same for cfg/birds_joint_ft.yml: the speech encoder in
                G's optimizer group on ragged synthetic WAVs, featurized per
                step (K1), its recurrence through K2 forward and K3 backward;
-  9. loop    - the trainer loop (train.loop.GanTrainer) on the joint cfg at
+  9. bf16    - the cfgs' own compute type, bfloat16 (phases 4-8 set
+               DTYPE.COMPUTE float32 against it, as their gates are
+               float32's): a dtype audit of a joint step (G's and the Ds'
+               conv and BN outputs bfloat16; images, logits, the GRU's
+               input and the embedding float32), the serve batch's images
+               and the first GAN step (batch 4) on the card and the CPU in
+               bfloat16 against the CPU's float32, the card no further
+               from it than twice the CPU's bfloat16; then serve, encoder,
+               GAN, joint and GAN with bfloat16 Adam moments, each timed
+               with its device parts and peak memory beside phases 4-8's
+               float32 numbers, K1/K2/K3 launches, the checkpoint's bytes
+               with bfloat16 moments;
+ 10. loop    - the trainer loop (train.loop.GanTrainer) on the joint cfg,
+               in bfloat16 with bfloat16 Adam moments, at
                full width, batch 24, with cuDNN's deterministic algorithms:
                4 steps straight, and 2 steps, a stop, and a resume by a new
                trainer to step 4; the two final states (every parameter,
@@ -62,14 +75,15 @@ Phases, each of which passes or raises (nothing is caught):
                phase's WAVs through SpeechToImage.from_checkpoints of the
                run, bitwise equal to a pipeline of the trainer's in-memory
                EMA state; K1, K2 and K3 once per step, K1 and K2 per serve;
- 10. data    - the real-data path through the port's CLI at full birds
-               width: a StackGAN tree made from SEED
+ 11. data    - the real-data path through the port's CLI at full birds
+               width, in the cfgs' bfloat16: a StackGAN tree made from SEED
                (tools_torch/make_fixture_dataset.py: 8 classes x 7 images
                at 500 px, 10 captions each, WAVs of 3 000-164 080 samples),
                then entrypoints.main pretrain-encoder (1 epoch), --extract
                (speech-embeddings.pickle of both splits, shapes and
-               finiteness, one row against the pipeline's embedding of its
-               WAV alone), train birds_3stages (2 epochs) and
+               finiteness, one row against the float32 pipeline's embedding
+               of its WAV alone, no further than twice the bfloat16
+               pipeline's), train birds_3stages (2 epochs) and
                birds_joint_ft (1 epoch, NET_E), and sample eval_birds (a
                PNG per test file name and sample); K1, K2 (and K3) once per
                step and extraction batch; which image loader ran, the
@@ -1653,21 +1667,28 @@ def beside(tag: str, times: list[float], parts: dict[str, float], peak: float, r
 
 def bf16_step_gate(what: str, got: dict, cpu: dict, ref: dict) -> None:
     """The card's bfloat16 first step (``got``) against the CPU's float32
-    (``ref``), no further than twice the CPU's bfloat16 (``cpu``): the worst
-    loss term, each network's gradient (|diff| / |grad|) and the worst BN
-    running statistic."""
+    (``ref``), no further than twice the CPU's bfloat16 (``cpu``): each
+    network's gradient (|diff| / |grad|) and the worst BN running
+    statistic, each of which pools the rounding of many numbers. The loss
+    terms are printed, not gated: each is one number, one draw of the
+    rounding noise, and twice one draw bounds another only about 70% of the
+    time (the ratio of two half-normal draws exceeds 2 with probability
+    0.30); their gradients are gated."""
     e_card, e_cpu = step_errors(got, ref), step_errors(cpu, ref)
     if e_card["zero"]:
         raise AssertionError(f"[bf16] {what}: parameters with no gradient on the card: {e_card['zero']}")
-    rows = {"loss": (max(e_card["loss"].values()), max(e_cpu["loss"].values())),
-            "stats": (max(e_card["stats"].values()), max(e_cpu["stats"].values())),
+    rows = {"stats": (max(e_card["stats"].values()), max(e_cpu["stats"].values())),
             **{f"grad {k}": (v, e_cpu["net"][k]) for k, v in e_card["net"].items()}}
     e16 = step_errors(got, cpu)
     log(f"[bf16] {what}, first step at batch {CHECK_BATCH}, vs the CPU's float32 step: card bf16 | CPU bf16 (bound "
         "2x) " + "; ".join(f"{k} {a:.3g} | {b:.3g}" for k, (a, b) in rows.items())
+        + "; loss terms (rel err, not gated) " + " ".join(f"{k} {v:.3g} | {e_cpu['loss'][k]:.3g}"
+                                                         for k, v in e_card["loss"].items())
         + f"; card vs CPU bf16: worst loss {max(e16['loss'].values()):.3g} (float32's fixed tol {TOL_GAN_LOSS}), "
         "per network " + " ".join(f"{k} {v:.3g}" for k, v in e16["net"].items())
         + f" (float32's {TOL_GAN_GRAD_NET}), BN stats {max(e16['stats'].values()):.3g} ({TOL_GAN_STATS})")
+    if not all(np.isfinite(v) for v in got["mets"].values()):
+        raise AssertionError(f"[bf16] {what}: the card's losses are not finite: {got['mets']}")
     bad = [k for k, (a, b) in rows.items() if not a <= 2 * b]
     if bad:
         raise AssertionError(f"[bf16] {what}: the card's bf16 step is further from float32 than twice the "
@@ -1682,7 +1703,9 @@ def phase_bf16(card: str) -> dict[str, int]:
     card's bfloat16 no further from the CPU's float32 than twice the CPU's
     bfloat16), then serve (batch 8), encoder (64), GAN (24), joint (24) and
     GAN with bfloat16 Adam moments (24): host times, device parts, peak
-    memory, K1/K2/K3 launches and the checkpoint's bytes."""
+    memory, K1/K2/K3 launches and the checkpoint's bytes. The launches it
+    returns are those of the counted runs (the audit step, one serve batch,
+    3 steps of each training path), not of the timing loops."""
     counts = {}
 
     def counted(name: str, fn):
@@ -1698,7 +1721,7 @@ def phase_bf16(card: str) -> dict[str, int]:
         raise AssertionError(f"cfg/birds_joint_ft.yml computes in {cfg.DTYPE.COMPUTE}, not bfloat16")
     st = gan.init_state(cfg, device="cuda")
     batch = cli.featurize(raw, frontend_params_from_cfg(cfg.AUDIO), "cuda")
-    seen = dtype_audit(st.models, lambda: gan.train_step(st, batch, z, eps))
+    seen = counted("audit", lambda: dtype_audit(st.models, lambda: gan.train_step(st, batch, z, eps)))
     want = {"g conv": {"bfloat16"}, "g bn": {"bfloat16"}, "d conv": {"bfloat16"}, "d bn": {"bfloat16"},
             "images": {"float32"}, "logits": {"float32"}, "embedding": {"float32"}, "xw": {"float32"}}
     log(f"[bf16] dtype audit of a joint step (forward hooks): {dict(sorted(seen.items()))}")
@@ -1801,12 +1824,12 @@ def phase_bf16(card: str) -> dict[str, int]:
 
     log(f"[bf16] {card}: launches (K1/K2/K3/K4) " + "; ".join(
         f"{k} {'/'.join(str(v[n]) for n in KERNELS)}" for k, v in counts.items()))
-    want = {"serve": (1, 1, 0), "train": (TRAIN_STEPS,) * 3, "gan": (0, 0, 0), "joint": (GAN_STEPS,) * 3,
-            "gan_bf16_moments": (0, 0, 0)}
+    want = {"audit": (1, 1, 1), "serve": (1, 1, 0), "train": (TRAIN_STEPS,) * 3, "gan": (0, 0, 0),
+            "joint": (GAN_STEPS,) * 3, "gan_bf16_moments": (0, 0, 0)}
     for k, (n1, n2, n3) in want.items():
         if counts[k] != {"mel_fused": n1, "gru_fwd": n2, "gru_bwd": n3, "mel_framed": 0}:
             raise AssertionError(f"[bf16] {k}: launches {counts[k]}, expected K1/K2/K3 {n1}/{n2}/{n3}")
-    return read_counts()
+    return {k: sum(c[k] for c in counts.values()) for k in KERNELS}
 
 
 def main() -> None:

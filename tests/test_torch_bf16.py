@@ -44,8 +44,7 @@ from s2i_tpu_torch.models.ca_net import CANet
 from s2i_tpu_torch.models.discriminator import DNet
 from s2i_tpu_torch.models.encoder import BiGRU, SpeechEncoder
 from s2i_tpu_torch.models.generator import GNet, ToRGB
-from s2i_tpu_torch.models.layers import BatchNorm, Conv1d, Conv2d, Linear
-from s2i_tpu_torch.train import encoder as enc_train
+from s2i_tpu_torch.models.layers import BatchNorm, Conv1d, Conv2d
 from s2i_tpu_torch.train import gan
 from s2i_tpu_torch.utils import CheckpointManager
 from tests._flax_random import random_variables

@@ -562,3 +562,81 @@ def test_pinned_prefetch_raises_producer_errors_and_reaps_its_thread(card):
         next(it)
     pf._thread.join(timeout=10)
     assert not pf._thread.is_alive()
+
+
+def _spread_gate(card_out, cpu16, cpu32) -> tuple[float, float]:
+    """(max|card bf16 - CPU float32|, max|CPU bf16 - CPU float32|) over the
+    outputs, the first no larger than twice the second: bfloat16 rounding
+    taken in another order lands no further from float32 than the CPU's own
+    bfloat16 does, give or take."""
+    d = lambda a, b: max((x.float().cpu() - y.float()).abs().max().item() for x, y in zip(a, b))  # noqa: E731
+    err, spread = d(card_out, cpu32), d(cpu16, cpu32)
+    assert 0 < spread and err <= 2 * spread, (err, spread)
+    return err, spread
+
+
+def test_bf16_generator_and_discriminators_on_the_card_match_cpu(card):
+    """A bfloat16 G forward (images, float32) and each D's trunk code and
+    logits (float32), card against the CPU, from the same weights."""
+    from s2i_tpu_torch.models.discriminator import build_discriminators
+    from s2i_tpu_torch.models.generator import GNet
+
+    torch.manual_seed(0)
+    rng = np.random.default_rng(0)
+    z, c = (torch.from_numpy(rng.standard_normal((8, n)).astype(np.float32)) for n in (8, 16))
+    nets = {dt: (GNet(8, 8, 16, 32, 3, 1, dt, "transpose"), build_discriminators(3, 8, 16, dtype=dt))
+            for dt in (torch.bfloat16, torch.float32)}
+    sd_g, sd_d = nets[torch.float32][0].state_dict(), [d.state_dict() for d in nets[torch.float32][1]]
+    for g, ds in nets.values():
+        g.load_state_dict(sd_g)
+        for d, sd in zip(ds, sd_d):
+            d.load_state_dict(sd)
+    g16c, ds16c = GNet(8, 8, 16, 32, 3, 1, torch.bfloat16, "transpose"), build_discriminators(3, 8, 16,
+                                                                                            dtype=torch.bfloat16)
+    g16c.load_state_dict(sd_g)
+    for d, sd in zip(ds16c, sd_d):
+        d.load_state_dict(sd)
+    g16c.to(card).eval()
+    with torch.no_grad():
+        outs = {dt: g.eval()(z, c) for dt, (g, _) in nets.items()}
+        got = g16c(z.to(card), c.to(card))
+        assert all(x.dtype == torch.float32 for x in got)
+        _spread_gate(got, outs[torch.bfloat16], outs[torch.float32])
+        imgs = outs[torch.float32]
+        for i, dc in enumerate(ds16c):
+            dc.to(card).eval()
+            ref = {dt: (ds[i].eval().trunk(imgs[i]), *ds[i](imgs[i], c)) for dt, (_, ds) in nets.items()}
+            out = (dc.trunk(imgs[i].to(card)), *dc(imgs[i].to(card), c.to(card)))
+            assert out[1].dtype == out[2].dtype == torch.float32
+            _spread_gate(out, ref[torch.bfloat16], ref[torch.float32])
+
+
+def test_bf16_moment_adam_on_the_card_matches_cpu(card):
+    """TRAIN.MOMENT_DTYPE=bfloat16: 3 steps of the same gradients on the
+    card and on the CPU give bitwise equal bfloat16 moments and parameters
+    of the large leaves (elementwise float32 arithmetic, one operation per
+    kernel), and float32 Adam's within float32 rounding on the rest."""
+    cfg = config.apply_overrides(config.default_cfg(), ["TRAIN.MOMENT_DTYPE=bfloat16",
+                                                        "TRAIN.MOMENT_DTYPE_MIN_SIZE=300"])
+    rng = np.random.default_rng(0)
+    shapes = [(8, 3, 4, 4), (64, 32), (8,), (16,)]
+    init = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[rng.standard_normal(s).astype(np.float32) for s in shapes] for _ in range(3)]
+    params, opts = {}, {}
+    for dev in ("cpu", "cuda"):
+        params[dev] = [torch.nn.Parameter(torch.from_numpy(x.copy()).to(dev)) for x in init]
+        opts[dev] = gan.make_optimizer(cfg, params[dev], 2e-4)
+        for step in grads:
+            for p, g in zip(params[dev], step):
+                p.grad = torch.from_numpy(g.copy()).to(dev)
+            opts[dev].step()
+    for pc, pg in zip(params["cpu"], params["cuda"]):
+        sc, sg = opts["cpu"].state[pc], opts["cuda"].state[pg]
+        if pc.numel() >= 300:
+            assert sg["exp_avg"].dtype == sg["exp_avg_sq"].dtype == torch.bfloat16
+            for k in ("exp_avg", "exp_avg_sq"):
+                assert torch.equal(sg[k].cpu(), sc[k]), k
+            assert torch.equal(pg.detach().cpu(), pc.detach())
+        else:
+            assert sg["exp_avg"].dtype == torch.float32
+            np.testing.assert_allclose(pg.detach().cpu().numpy(), pc.detach().numpy(), rtol=1e-6, atol=1e-7)
