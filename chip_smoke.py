@@ -49,7 +49,7 @@ Phases, each of which passes or raises (nothing is caught):
   8. joint   - the same for cfg/birds_joint_ft.yml: the speech encoder in
                G's optimizer group on ragged synthetic WAVs, featurized per
                step (K1), its recurrence through K2 forward and K3 backward;
-  9. bf16    - the cfgs' own compute type, bfloat16 (phases 4-8 set
+  9. bf16    - the cfgs' own compute type, bfloat16 (phases 4, 5, 7, 8 set
                DTYPE.COMPUTE float32 against it, as their gates are
                float32's): a dtype audit of a joint step (G's and the Ds'
                conv and BN outputs bfloat16; images, logits, the GRU's
@@ -58,7 +58,7 @@ Phases, each of which passes or raises (nothing is caught):
                bfloat16 against the CPU's float32, the card no further
                from it than twice the CPU's bfloat16; then serve, encoder,
                GAN, joint and GAN with bfloat16 Adam moments, each timed
-               with its device parts and peak memory beside phases 4-8's
+               with its device parts and peak memory beside those phases'
                float32 numbers, K1/K2/K3 launches, the checkpoint's bytes
                with bfloat16 moments;
  10. loop    - the trainer loop (train.loop.GanTrainer) on the joint cfg,

@@ -613,9 +613,10 @@ def test_bf16_generator_and_discriminators_on_the_card_match_cpu(card):
 
 def test_bf16_moment_adam_on_the_card_matches_cpu(card):
     """TRAIN.MOMENT_DTYPE=bfloat16: 3 steps of the same gradients on the
-    card and on the CPU give bitwise equal bfloat16 moments and parameters
-    of the large leaves (elementwise float32 arithmetic, one operation per
-    kernel), and float32 Adam's within float32 rounding on the rest."""
+    card and on the CPU give bitwise equal bfloat16 moments on the large
+    leaves (elementwise float32 arithmetic, one operation per kernel), and
+    parameters within float32 rounding (the card divides by a scalar as a
+    product with its reciprocal)."""
     cfg = config.apply_overrides(config.default_cfg(), ["TRAIN.MOMENT_DTYPE=bfloat16",
                                                         "TRAIN.MOMENT_DTYPE_MIN_SIZE=300"])
     rng = np.random.default_rng(0)
@@ -636,7 +637,6 @@ def test_bf16_moment_adam_on_the_card_matches_cpu(card):
             assert sg["exp_avg"].dtype == sg["exp_avg_sq"].dtype == torch.bfloat16
             for k in ("exp_avg", "exp_avg_sq"):
                 assert torch.equal(sg[k].cpu(), sc[k]), k
-            assert torch.equal(pg.detach().cpu(), pc.detach())
         else:
             assert sg["exp_avg"].dtype == torch.float32
-            np.testing.assert_allclose(pg.detach().cpu().numpy(), pc.detach().numpy(), rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(pg.detach().cpu().numpy(), pc.detach().numpy(), rtol=1e-6, atol=1e-7)
