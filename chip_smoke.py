@@ -259,6 +259,22 @@ def time_ms(fn, reps: int = 20, warmup: int = 3, queued: bool = False) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timed_steps(step, n: int) -> tuple[list[float], float, object]:
+    """Host ms of ``n`` synchronized calls of ``step`` after 2 of warm-up,
+    the peak device memory (MiB) over them and the last call's result."""
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times, torch.cuda.max_memory_allocated() / 2**20, out
+
+
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     """The least time the card could take: (ms, what bounds it)."""
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
@@ -918,17 +934,7 @@ def phase_train(card: str) -> dict[str, int]:
 
     # step time: featurize + encoder_train_step, host clock, synchronized
     state = states["cuda"]
-    for _ in range(2):
-        encoder_train_step(state, cli.featurize(raw, p, "cuda"))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(STEP_RUNS):
-        t0 = time.perf_counter()
-        m = encoder_train_step(state, cli.featurize(raw, p, "cuda"))
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    peak = torch.cuda.max_memory_allocated() / 2**20
+    times, peak, m = timed_steps(lambda: encoder_train_step(state, cli.featurize(raw, p, "cuda")), STEP_RUNS)
     if not np.isfinite(float(m["loss"])):
         raise AssertionError(f"loss not finite after {state.step} steps: {m}")
     parts = [step_parts_ms(state, raw, p) for _ in range(3)]
@@ -1149,19 +1155,9 @@ def phase_gan(card: str, path: str) -> dict[str, int]:
     # the wav → log-mel on the card, is part of a joint step)
     raws = list(cli.synthetic_gan_batches(cfg)(1))
     stream = itertools.cycle(raws)
-    step = (lambda raw: gan.train_step(st, cli.featurize(raw, p, "cuda"))) if joint else \
-        (lambda raw: gan.train_step(st, raw))
-    for _ in range(2):
-        step(next(stream))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(GAN_STEP_RUNS):
-        t0 = time.perf_counter()
-        m = step(next(stream))
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    peak = torch.cuda.max_memory_allocated() / 2**20
+    step = (lambda: gan.train_step(st, cli.featurize(next(stream), p, "cuda"))) if joint else \
+        (lambda: gan.train_step(st, next(stream)))
+    times, peak, m = timed_steps(step, GAN_STEP_RUNS)
     if not all(np.isfinite(float(v)) for v in m.values()):
         raise AssertionError(f"GAN metrics not finite after {st.step} steps: {m}")
     parts = [gan_step_parts_ms(st, next(stream), p, joint) for _ in range(3)]
@@ -1641,22 +1637,6 @@ def dtype_audit(models: gan.GanModels, run) -> dict[str, set]:
     return seen
 
 
-def timed_steps(step, n: int) -> tuple[list[float], float]:
-    """Host ms of ``n`` synchronized calls of ``step`` after 2 of warm-up,
-    and the peak device memory (MiB) over them."""
-    for _ in range(2):
-        step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(n):
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    return times, torch.cuda.max_memory_allocated() / 2**20
-
-
 def beside(tag: str, times: list[float], parts: dict[str, float], peak: float, ref: dict) -> str:
     """One path's bfloat16 numbers with the float32 phase's of the same run beside them."""
     f = lambda ts: f"{np.median(ts):.2f} ({min(ts):.2f}-{max(ts):.2f})"  # noqa: E731
@@ -1753,8 +1733,8 @@ def phase_bf16(card: str) -> dict[str, int]:
         parts = {"frontend": time_ms(lambda: extract_features(wavs_dev, pipe.p, wav_len=ref["lens"]), reps=10),
                  "encoder": time_ms(lambda: pipe.encoder(fc, mc), reps=10),
                  "generator": time_ms(lambda: pipe.g(zt, mu), reps=10)}
-    times, peak = timed_steps(lambda: pipe.generate(ref["wavs"], ref["lens"], seed=1, output_dtype="uint8"),
-                              LATENCY_RUNS)
+    times, peak, _ = timed_steps(lambda: pipe.generate(ref["wavs"], ref["lens"], seed=1, output_dtype="uint8"),
+                                 LATENCY_RUNS)
     log(beside(f"serve, batch {BATCH}", times, parts, peak, F32["serve"]))
     del pipe
 
@@ -1770,9 +1750,8 @@ def phase_bf16(card: str) -> dict[str, int]:
     p = frontend_params_from_cfg(cfg.AUDIO)
     raw = train_batch(p, int(cfg.ENCODER.N_CLASSES), int(cfg.TEXT.DIMENSION))
     state = init_encoder_state(cfg, device="cuda")
-    mets = counted("train", lambda: [encoder_train_step(state, cli.featurize(raw, p, "cuda"))
-                                     for _ in range(TRAIN_STEPS)][-1])
-    times, peak = timed_steps(lambda: encoder_train_step(state, cli.featurize(raw, p, "cuda")), STEP_RUNS)
+    counted("train", lambda: [encoder_train_step(state, cli.featurize(raw, p, "cuda")) for _ in range(TRAIN_STEPS)])
+    times, peak, mets = timed_steps(lambda: encoder_train_step(state, cli.featurize(raw, p, "cuda")), STEP_RUNS)
     parts = [step_parts_ms(state, raw, p) for _ in range(3)]
     parts = {k: float(np.median([pt[k] for pt in parts])) for k in parts[0]}
     log(beside(f"encoder pretrain, batch {TRAIN_BATCH}", times, parts, peak, F32["train"])
@@ -1793,8 +1772,8 @@ def phase_bf16(card: str) -> dict[str, int]:
         stream = itertools.cycle(list(cli.synthetic_gan_batches(cfg)(1)))
         step = (lambda: gan.train_step(st, cli.featurize(next(stream), p, "cuda"))) if joint else \
             (lambda: gan.train_step(st, next(stream)))
-        mets = counted(tag, lambda: [step() for _ in range(GAN_STEPS)][-1])
-        times, peak = timed_steps(step, GAN_STEP_RUNS)
+        counted(tag, lambda: [step() for _ in range(GAN_STEPS)])
+        times, peak, mets = timed_steps(step, GAN_STEP_RUNS)
         parts = [gan_step_parts_ms(st, next(stream), p, joint) for _ in range(3)]
         parts = {k: float(np.median([pt[k] for pt in parts])) for k in parts[0]}
         line = beside(f"{tag}, batch {GAN_BATCH}, Adam moments {moments}", times, parts, peak,

@@ -75,8 +75,11 @@ class BiGRU(nn.Module):
         n_dir = len(self.directions)
         d = self.dtype
         # every direction's input projection in one product, in the compute
-        # type, then float32 for the recurrence: [B, T, D*3H]
-        xw = F.linear(x.to(d), torch.cat(stack("weight_ih")).to(d), torch.cat(stack("bias_ih")).to(d)).float()
+        # type (a bias added to the rounded product, as Flax's Dense), then
+        # float32 for the recurrence: [B, T, D*3H]
+        w_i, b_i = torch.cat(stack("weight_ih")), torch.cat(stack("bias_ih"))
+        xw = F.linear(x, w_i, b_i) if d == torch.float32 else F.linear(x.to(d), w_i.to(d)) + b_i.to(d)
+        xw = xw.float()
         xw = xw.view(b, t, n_dir, 3 * self.hidden).permute(2, 1, 0, 3).contiguous()  # [D, T, B, 3H]
         w_h = torch.stack([w.t() for w in stack("weight_hh")])  # [D, H, 3H]
         h0 = xw.new_zeros((n_dir, b, self.hidden))

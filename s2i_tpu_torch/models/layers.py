@@ -70,10 +70,10 @@ def _add_bias(y: torch.Tensor, bias: torch.Tensor | None, dim: int = 1) -> torch
     return y + bias.to(y.dtype).view(shape)
 
 
-class Conv1d(nn.Conv1d):
-    """``nn.Conv1d`` that computes in ``dtype`` (Flax ``nn.Conv(dtype=)``):
-    input, kernel and bias cast to it, the bias added to the rounded
-    product; the parameters stay float32."""
+class _CastConv:
+    """A torch conv that computes in ``dtype`` (Flax ``nn.Conv(dtype=)``):
+    input and kernel cast to it, the bias added to the rounded product; the
+    parameters stay float32. In float32 it is the torch conv."""
 
     def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
         super().__init__(*args, **kwargs)
@@ -85,17 +85,12 @@ class Conv1d(nn.Conv1d):
         return _add_bias(self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype), None), self.bias)
 
 
-class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` that computes in ``dtype``, as :class:`Conv1d`."""
+class Conv1d(_CastConv, nn.Conv1d):
+    pass
 
-    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.dtype == torch.float32:
-            return self._conv_forward(x, self.weight, self.bias)
-        return _add_bias(self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype), None), self.bias)
+class Conv2d(_CastConv, nn.Conv2d):
+    pass
 
 
 class Linear(nn.Linear):
