@@ -1700,14 +1700,18 @@ def phase_bf16(card: str) -> dict[str, int]:
     if compute_dtype(cfg) != torch.bfloat16:
         raise AssertionError(f"cfg/birds_joint_ft.yml computes in {cfg.DTYPE.COMPUTE}, not bfloat16")
     st = gan.init_state(cfg, device="cuda")
-    batch = cli.featurize(raw, frontend_params_from_cfg(cfg.AUDIO), "cuda")
-    seen = counted("audit", lambda: dtype_audit(st.models, lambda: gan.train_step(st, batch, z, eps)))
+
+    def audited_step():
+        batch = cli.featurize(raw, frontend_params_from_cfg(cfg.AUDIO), "cuda")
+        return dtype_audit(st.models, lambda: gan.train_step(st, batch, z, eps))
+
+    seen = counted("audit", audited_step)
     want = {"g conv": {"bfloat16"}, "g bn": {"bfloat16"}, "d conv": {"bfloat16"}, "d bn": {"bfloat16"},
             "images": {"float32"}, "logits": {"float32"}, "embedding": {"float32"}, "xw": {"float32"}}
     log(f"[bf16] dtype audit of a joint step (forward hooks): {dict(sorted(seen.items()))}")
     if seen != want:
         raise AssertionError(f"[bf16] output types {seen}, expected {want}")
-    del st, batch
+    del st
 
     # serve: the serve phase's weights and batch in bfloat16, card and CPU
     ref = F32["serve_ref"]
