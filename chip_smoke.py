@@ -90,7 +90,23 @@ Phases, each of which passes or raises (nothing is caught):
                loaders' host rates, the wav batch's copy pageable against
                pinned, and windows of encoder and GAN steps on made-ahead
                and loader batches through the pinned prefetch, with the
-               device's idle share between steps.
+               device's idle share between steps;
+ 12. eval    - the evaluation layer (s2i_tpu_torch/eval/, no kernel of
+               its own): InceptionV3 at 299 px in float32 with seeded
+               weights, BN scale and bias randomized and BN statistics
+               from a train-mode pass over G's images, card vs CPU on 8
+               of G's 256 px images (and the quantized resize); 2 x 1024
+               images of
+               cfg/birds_3stages.yml's seeded G in its bfloat16 through
+               InceptionFeatures(quantize_input=True) at EVAL.FID_BATCH:
+               IS over 10 splits >= 1, FID(X, X) ~ 0, FID(X, Y) > 0,
+               pipelined extraction bitwise equal to the serial loop;
+               images/s pipelined and serial, the forward's device ms per
+               batch beside its bound, peak memory, FID's host ms beside
+               scipy's sqrtm; then on the data phase's tree (deleted
+               after this phase) the eval, eval --retrieval,
+               finetune-inception (1 epoch, 299 px, batch 32) and eval
+               --finetuned_ckpt commands, and the finetune step's ms.
 The last lines are a JSON record of the kernels, the card as nvidia-smi
 names it, and {"ok": true, "device": {...}}.
 """
@@ -111,6 +127,7 @@ import time
 import urllib.request
 
 import numpy as np
+import scipy.linalg
 import torch
 from PIL import Image
 
@@ -128,9 +145,15 @@ from s2i_tpu_torch.data import SyntheticGanDataset, synthetic_wavs
 from s2i_tpu_torch.data.pipeline import Prefetcher
 from s2i_tpu_torch.data.stackgan import GanEpochIterator, SpeechEpochIterator, StackGanSplit
 from s2i_tpu_torch.device import compute_dtype, resolve_device
+from s2i_tpu_torch.eval import InceptionFeatures, fid_from_stats, gaussian_stats, inception_score_from_probs
+from s2i_tpu_torch.eval.features import preprocess
+from s2i_tpu_torch.eval.finetune import init_inception_state, make_inception_train_step
+from s2i_tpu_torch.eval.inception_score import softmax
 from s2i_tpu_torch.models import encoder as encoder_model
 from s2i_tpu_torch.models.discriminator import DLogits
 from s2i_tpu_torch.models.generator import ToRGB
+from s2i_tpu_torch.models.inception import InceptionV3
+from s2i_tpu_torch.models.inception import init_weights as init_inception
 from s2i_tpu_torch.models.layers import BatchNorm, Conv2d
 from s2i_tpu_torch.ops import build, gru_kernel, mel_kernel
 from s2i_tpu_torch.pipeline import SpeechToImage, build_encoder, build_generator
@@ -166,6 +189,12 @@ DATA_IMAGE_PX = 500  # CUB's photos are about 500 px on the long side
 DATA_WAV_SAMPLES = (3000, 164080)  # up to the longest utterance the birds frontend takes
 DATA_STEPS = 14  # timed encoder steps of each data-phase window
 DATA_GAN_STEPS = 10  # timed GAN steps of each data-phase window
+EVAL_IMAGES = 1024  # G images of each set the eval phase scores
+EVAL_GEN_BATCH = 24  # TRAIN.BATCH_SIZE of cfg/birds_3stages.yml
+EVAL_SPLITS = 10  # the StackGAN IS protocol's splits
+EVAL_CHECK = 8  # G images held card vs CPU through InceptionV3
+FINETUNE_BATCH = 32  # finetune-inception's --batch default
+FINETUNE_STEPS = 6  # timed finetune steps, after 2 of warm-up
 AB_SHAPE = (8, 64000)  # scripts/perf_cert.py::cert_mel's wav batch
 FLUSH_BYTES = 256 << 20  # written between launches of a cold timing: five times the H100's 50 MB L2
 
@@ -216,6 +245,11 @@ TOL_GAN_GRAD_NET = 1.5e-2
 TOL_GAN_GRAD_MEDIAN = 6e-3
 TOL_GAN_GRAD_TENSOR = 0.2
 TOL_GAN_STATS = 1e-4
+# InceptionV3 at 299 px in float32 (TF32 off), card vs CPU: pool3 and the
+# logits relative to their largest magnitude (sums over ~95 layers in
+# cuDNN's order); the quantized resize absolute (one rounding per tap sum).
+TOL_INCEPTION = 1e-3
+TOL_PREPROCESS = 1e-5
 
 
 # step medians (ms) of the train, gan and joint phases on batches made ahead
@@ -1422,181 +1456,374 @@ def only_run(out: str, prefix: str) -> str:
     return os.path.join(out, name)
 
 
-def phase_data(card: str) -> dict[str, int]:
+def phase_data(card: str, root: str) -> tuple[dict[str, int], dict[str, str]]:
     """The real-data path through the port's CLI at full birds width, on a
-    StackGAN tree made from SEED (tools_torch/make_fixture_dataset.py):
-    pretrain → extract → train (frozen, joint) → sample, each through
-    entrypoints.main; the loaders' host rates, the wav copy pageable vs
-    pinned, and the encoder and GAN steps fed by the loaders through the
-    pinned prefetch against steps on batches made ahead."""
+    StackGAN tree made from SEED (tools_torch/make_fixture_dataset.py)
+    under ``root``: pretrain → extract → train (frozen, joint) → sample,
+    each through entrypoints.main; the loaders' host rates, the wav copy
+    pageable vs pinned, and the encoder and GAN steps fed by the loaders
+    through the pinned prefetch against steps on batches made ahead.
+    Returns the launches and the paths the eval phase reads (``tree``,
+    ``samples``, ``runs``)."""
     t_phase = time.time()
-    os.makedirs("output", exist_ok=True)
-    root = tempfile.mkdtemp(prefix="chip_smoke_data_", dir="output")
-    try:
-        tree, fixture_s = fixture_tree(root)
-        runs = os.path.join(root, "runs")
-        lib = native.get_lib()
-        loader = "native (C++ JPEG decode, s2i_tpu_torch/native)" if lib is not None else \
-            f"PIL (the native loader did not build: {native.unavailable_reason()})"
-        log(f"[data] fixture {DATA_CLASSES} classes x {DATA_PER_CLASS} images ({DATA_TRAIN} train, "
-            f"{DATA_CLASSES} test), {DATA_CAPTIONS} captions each, {DATA_IMAGE_PX} px JPEGs, 1024-d teacher "
-            f"embeddings, 16 kHz WAVs of {DATA_WAV_SAMPLES[0]}..{DATA_WAV_SAMPLES[1]} samples, made in "
-            f"{fixture_s:.1f} s; image loader: {loader}")
+    tree, fixture_s = fixture_tree(root)
+    runs = os.path.join(root, "runs")
+    lib = native.get_lib()
+    loader = "native (C++ JPEG decode, s2i_tpu_torch/native)" if lib is not None else \
+        f"PIL (the native loader did not build: {native.unavailable_reason()})"
+    log(f"[data] fixture {DATA_CLASSES} classes x {DATA_PER_CLASS} images ({DATA_TRAIN} train, "
+        f"{DATA_CLASSES} test), {DATA_CAPTIONS} captions each, {DATA_IMAGE_PX} px JPEGs, 1024-d teacher "
+        f"embeddings, 16 kHz WAVs of {DATA_WAV_SAMPLES[0]}..{DATA_WAV_SAMPLES[1]} samples, made in "
+        f"{fixture_s:.1f} s; image loader: {loader}")
 
-        enc_cfg = config.cfg_from_file("cfg/pretrain_encoder_birds.yml")
-        birds_cfg = config.apply_overrides(config.cfg_from_file("cfg/birds_3stages.yml"), [f"DATA_DIR={tree}"])
-        p = frontend_params_from_cfg(enc_cfg.AUDIO)
-        split = StackGanSplit(tree, "train")
+    enc_cfg = config.cfg_from_file("cfg/pretrain_encoder_birds.yml")
+    birds_cfg = config.apply_overrides(config.cfg_from_file("cfg/birds_3stages.yml"), [f"DATA_DIR={tree}"])
+    p = frontend_params_from_cfg(enc_cfg.AUDIO)
+    split = StackGanSplit(tree, "train")
 
-        # the host loaders alone
-        it = GanEpochIterator(split, GAN_BATCH, 3, seed=SEED, num_threads=int(birds_cfg.WORKERS),
-                              image_dtype=str(birds_cfg.DATA.IMAGE_DTYPE), ship_scales=str(birds_cfg.DATA.SHIP_SCALES))
-        rates = {}
-        for name, use_native in (("native", True), ("PIL", False)):
-            if use_native and lib is None:
-                continue
-            it.use_native = use_native
-            t0 = time.perf_counter()
-            n_img = sum(len(b["images"][0]) for _ in range(2) for b in it)
-            rates[name] = n_img / (time.perf_counter() - t0)
+    # the host loaders alone
+    it = GanEpochIterator(split, GAN_BATCH, 3, seed=SEED, num_threads=int(birds_cfg.WORKERS),
+                          image_dtype=str(birds_cfg.DATA.IMAGE_DTYPE), ship_scales=str(birds_cfg.DATA.SHIP_SCALES))
+    rates = {}
+    for name, use_native in (("native", True), ("PIL", False)):
+        if use_native and lib is None:
+            continue
+        it.use_native = use_native
         t0 = time.perf_counter()
-        n_utt = sum(len(b["wav"]) for b in SpeechEpochIterator(split, TRAIN_BATCH, p.sample_rate, p.max_samples))
-        utt_rate = n_utt / (time.perf_counter() - t0)
-        pageable_ms, pinned_ms = copy_ms(np.zeros((TRAIN_BATCH, p.max_samples), np.float32))
-        mb = TRAIN_BATCH * p.max_samples * 4 / 1e6
-        log(f"[data] {card}: host loaders alone: " + ", ".join(f"{k} {v:.1f} images/s" for k, v in rates.items())
-            + f" at 256 px (GanEpochIterator, batch {GAN_BATCH}, uint8 top scale, {birds_cfg.WORKERS} threads); "
-            f"{utt_rate:.1f} utterances/s (SpeechEpochIterator, batch {TRAIN_BATCH}, serial WAV reads); one "
-            f"encoder wav batch ({mb:.1f} MB) host->card: pageable {pageable_ms:.3f} ms, pinned {pinned_ms:.3f} ms "
-            f"({mb / pinned_ms:.1f} GB/s; CUDA events, median of 5)")
+        n_img = sum(len(b["images"][0]) for _ in range(2) for b in it)
+        rates[name] = n_img / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    n_utt = sum(len(b["wav"]) for b in SpeechEpochIterator(split, TRAIN_BATCH, p.sample_rate, p.max_samples))
+    utt_rate = n_utt / (time.perf_counter() - t0)
+    pageable_ms, pinned_ms = copy_ms(np.zeros((TRAIN_BATCH, p.max_samples), np.float32))
+    mb = TRAIN_BATCH * p.max_samples * 4 / 1e6
+    log(f"[data] {card}: host loaders alone: " + ", ".join(f"{k} {v:.1f} images/s" for k, v in rates.items())
+        + f" at 256 px (GanEpochIterator, batch {GAN_BATCH}, uint8 top scale, {birds_cfg.WORKERS} threads); "
+        f"{utt_rate:.1f} utterances/s (SpeechEpochIterator, batch {TRAIN_BATCH}, serial WAV reads); one "
+        f"encoder wav batch ({mb:.1f} MB) host->card: pageable {pageable_ms:.3f} ms, pinned {pinned_ms:.3f} ms "
+        f"({mb / pinned_ms:.1f} GB/s; CUDA events, median of 5)")
 
-        base = ["--data_dir", tree, "--output_dir", runs]
-        counts = {}
+    base = ["--data_dir", tree, "--output_dir", runs]
+    counts = {}
 
-        def counted(name: str, argv: list[str]):
-            reset_counts()
-            t0 = time.time()
-            result = entrypoints.main(argv + base)
-            counts[name] = read_counts()
-            return result, time.time() - t0
+    def counted(name: str, argv: list[str]):
+        reset_counts()
+        t0 = time.time()
+        result = entrypoints.main(argv + base)
+        counts[name] = read_counts()
+        return result, time.time() - t0
 
-        _, pre_s = counted("pretrain", ["pretrain-encoder", "--cfg", "cfg/pretrain_encoder_birds.yml", "--set",
-                                        "ENCODER.EPOCHS=1", "ENCODER.LOG_EVERY=1"])
-        enc_run = only_run(runs, "birds_encoder_encoder_")
-        with open(os.path.join(enc_run, "scalars.jsonl")) as f:
-            losses = [json.loads(line)["loss"] for line in f]
-        steps = DATA_TRAIN * DATA_CAPTIONS // TRAIN_BATCH
-        if len(losses) != steps or not np.isfinite(losses).all():
-            raise AssertionError(f"pretraining losses {losses}: not {steps} finite ones")
-        finite_checkpoint(os.path.join(enc_run, "ckpt"))
+    _, pre_s = counted("pretrain", ["pretrain-encoder", "--cfg", "cfg/pretrain_encoder_birds.yml", "--set",
+                                    "ENCODER.EPOCHS=1", "ENCODER.LOG_EVERY=1"])
+    enc_run = only_run(runs, "birds_encoder_encoder_")
+    with open(os.path.join(enc_run, "scalars.jsonl")) as f:
+        losses = [json.loads(line)["loss"] for line in f]
+    steps = DATA_TRAIN * DATA_CAPTIONS // TRAIN_BATCH
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"pretraining losses {losses}: not {steps} finite ones")
+    finite_checkpoint(os.path.join(enc_run, "ckpt"))
 
-        written, ext_s = counted("extract", ["pretrain-encoder", "--cfg", "cfg/pretrain_encoder_birds.yml",
-                                             "--extract", os.path.join(enc_run, "ckpt")])
-        n_ext = (DATA_TRAIN + DATA_CLASSES) * DATA_CAPTIONS
-        embs = {}
-        for name, n in (("train", DATA_TRAIN), ("test", DATA_CLASSES)):
-            embs[name] = StackGanSplit(tree, name, embedding_file="speech-embeddings.pickle").embeddings
-            if embs[name].shape != (n, DATA_CAPTIONS, 1024) or not np.isfinite(embs[name]).all():
-                raise AssertionError(f"{written[name]}: shape {embs[name].shape} or not finite")
-        # one utterance's row against the pipeline's encoder embedding of its WAV alone
-        enc_sd = CheckpointManager(os.path.join(enc_run, "ckpt")).restore_latest_raw()[0]["model"]
-        pipe = SpeechToImage(enc_cfg, enc_sd, build_generator(enc_cfg).state_dict(), device="cuda")
-        test = StackGanSplit(tree, "test")
-        row = (DATA_CLASSES - 1, DATA_CAPTIONS - 1)  # the last test image's last caption
-        wav = test.load_wav(*row, p.sample_rate)[: p.max_samples]
-        # in bfloat16 (the cfg's) extraction at batch 64 and the pipeline at
-        # batch 1 may take other cuDNN algorithms, and each rounds to
-        # bfloat16 where the other need not: the row may sit no further from
-        # the float32 pipeline's embedding than twice the bfloat16
-        # pipeline's does on the same WAV (the rule of the bf16 phase)
-        f32_cfg = config.apply_overrides(copy.deepcopy(enc_cfg), ["DTYPE.COMPUTE=float32"])
-        pipe32 = SpeechToImage(f32_cfg, enc_sd, build_generator(f32_cfg).state_dict(), device="cuda")
-        with torch.no_grad():
-            one, one32 = (embedding(q.encoder(*extract_features(wav[None], q.p, [len(wav)], device="cuda")))[0]
-                          .cpu().numpy() for q in (pipe, pipe32))
-        ext_err = float(np.abs(one - embs["test"][row]).max())
-        ext_err32 = float(np.abs(one32 - embs["test"][row]).max())
-        ext_bound = 2 * float(np.abs(one - one32).max())
-        del pipe, pipe32
-        if not ext_err32 <= ext_bound:
-            raise AssertionError(f"extracted row vs the float32 pipeline's embedding: {ext_err32} > {ext_bound}")
+    written, ext_s = counted("extract", ["pretrain-encoder", "--cfg", "cfg/pretrain_encoder_birds.yml",
+                                         "--extract", os.path.join(enc_run, "ckpt")])
+    n_ext = (DATA_TRAIN + DATA_CLASSES) * DATA_CAPTIONS
+    embs = {}
+    for name, n in (("train", DATA_TRAIN), ("test", DATA_CLASSES)):
+        embs[name] = StackGanSplit(tree, name, embedding_file="speech-embeddings.pickle").embeddings
+        if embs[name].shape != (n, DATA_CAPTIONS, 1024) or not np.isfinite(embs[name]).all():
+            raise AssertionError(f"{written[name]}: shape {embs[name].shape} or not finite")
+    # one utterance's row against the pipeline's encoder embedding of its WAV alone
+    enc_sd = CheckpointManager(os.path.join(enc_run, "ckpt")).restore_latest_raw()[0]["model"]
+    pipe = SpeechToImage(enc_cfg, enc_sd, build_generator(enc_cfg).state_dict(), device="cuda")
+    test = StackGanSplit(tree, "test")
+    row = (DATA_CLASSES - 1, DATA_CAPTIONS - 1)  # the last test image's last caption
+    wav = test.load_wav(*row, p.sample_rate)[: p.max_samples]
+    # in bfloat16 (the cfg's) extraction at batch 64 and the pipeline at
+    # batch 1 may take other cuDNN algorithms, and each rounds to
+    # bfloat16 where the other need not: the row may sit no further from
+    # the float32 pipeline's embedding than twice the bfloat16
+    # pipeline's does on the same WAV (the rule of the bf16 phase)
+    f32_cfg = config.apply_overrides(copy.deepcopy(enc_cfg), ["DTYPE.COMPUTE=float32"])
+    pipe32 = SpeechToImage(f32_cfg, enc_sd, build_generator(f32_cfg).state_dict(), device="cuda")
+    with torch.no_grad():
+        one, one32 = (embedding(q.encoder(*extract_features(wav[None], q.p, [len(wav)], device="cuda")))[0]
+                      .cpu().numpy() for q in (pipe, pipe32))
+    ext_err = float(np.abs(one - embs["test"][row]).max())
+    ext_err32 = float(np.abs(one32 - embs["test"][row]).max())
+    ext_bound = 2 * float(np.abs(one - one32).max())
+    del pipe, pipe32
+    if not ext_err32 <= ext_bound:
+        raise AssertionError(f"extracted row vs the float32 pipeline's embedding: {ext_err32} > {ext_bound}")
 
-        counted("train", ["train", "--cfg", "cfg/birds_3stages.yml", "--set", "TRAIN.MAX_EPOCH=2"])
-        gan_run = only_run(runs, "birds_3stages_train_")
-        counted("joint", ["train", "--cfg", "cfg/birds_joint_ft.yml", "--set", "TRAIN.MAX_EPOCH=1",
-                          f"TRAIN.NET_E={os.path.join(enc_run, 'ckpt')}"])
-        joint_run = only_run(runs, "birds_joint_train_")
-        gan_steps = DATA_TRAIN // GAN_BATCH
-        for run, want in ((gan_run, 2 * gan_steps), (joint_run, gan_steps)):
-            with open(os.path.join(run, "run_meta.json")) as f:
-                meta = json.load(f)
-            if finite_checkpoint(os.path.join(run, "ckpt")) != want or meta["device"] != torch.cuda.get_device_name(0):
-                raise AssertionError(f"{run}: not {want} steps on the card ({meta['device']})")
-        samples, sample_s = counted("sample", ["sample", "--cfg", "cfg/eval_birds.yml", "--set",
-                                               f"TRAIN.NET_G={os.path.join(gan_run, 'ckpt')}"])
-        names = sorted(f.replace("/", "_") + ".png" for f in test.filenames)
-        n_samples = int(config.cfg_from_file("cfg/eval_birds.yml").EVAL.NUM_SAMPLES_PER_EMB)
-        got = {s: sorted(os.listdir(os.path.join(samples, str(s)))) for s in range(n_samples)}
-        if any(v != names for v in got.values()):
-            raise AssertionError(f"samples {got} are not one PNG per test image {names}")
-        with Image.open(os.path.join(samples, "0", names[0])) as im:
-            px = np.asarray(im)
-        if px.shape != (256, 256, 3) or not px.std() > 0:
-            raise AssertionError(f"sample {names[0]}: shape {px.shape}, std {px.std()}")
+    counted("train", ["train", "--cfg", "cfg/birds_3stages.yml", "--set", "TRAIN.MAX_EPOCH=2"])
+    gan_run = only_run(runs, "birds_3stages_train_")
+    counted("joint", ["train", "--cfg", "cfg/birds_joint_ft.yml", "--set", "TRAIN.MAX_EPOCH=1",
+                      f"TRAIN.NET_E={os.path.join(enc_run, 'ckpt')}"])
+    joint_run = only_run(runs, "birds_joint_train_")
+    gan_steps = DATA_TRAIN // GAN_BATCH
+    for run, want in ((gan_run, 2 * gan_steps), (joint_run, gan_steps)):
+        with open(os.path.join(run, "run_meta.json")) as f:
+            meta = json.load(f)
+        if finite_checkpoint(os.path.join(run, "ckpt")) != want or meta["device"] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"{run}: not {want} steps on the card ({meta['device']})")
+    samples, sample_s = counted("sample", ["sample", "--cfg", "cfg/eval_birds.yml", "--set",
+                                           f"TRAIN.NET_G={os.path.join(gan_run, 'ckpt')}"])
+    names = sorted(f.replace("/", "_") + ".png" for f in test.filenames)
+    n_samples = int(config.cfg_from_file("cfg/eval_birds.yml").EVAL.NUM_SAMPLES_PER_EMB)
+    got = {s: sorted(os.listdir(os.path.join(samples, str(s)))) for s in range(n_samples)}
+    if any(v != names for v in got.values()):
+        raise AssertionError(f"samples {got} are not one PNG per test image {names}")
+    with Image.open(os.path.join(samples, "0", names[0])) as im:
+        px = np.asarray(im)
+    if px.shape != (256, 256, 3) or not px.std() > 0:
+        raise AssertionError(f"sample {names[0]}: shape {px.shape}, std {px.std()}")
 
-        extract_batches = sum(math.ceil(n * DATA_CAPTIONS / TRAIN_BATCH) for n in (DATA_TRAIN, DATA_CLASSES))
-        per_step = {"pretrain": steps, "extract": extract_batches, "train": 0, "joint": gan_steps, "sample": 0}
-        want = {name: {"mel_fused": n, "gru_fwd": n, "gru_bwd": n if name in ("pretrain", "joint") else 0,
-                       "mel_framed": 0} for name, n in per_step.items()}
-        log(f"[data] {card}: through entrypoints.main: pretrain {steps} steps {pre_s:.1f} s, extract "
-            f"{n_ext} utterances in {ext_s:.1f} s ({n_ext / ext_s:.1f} utterances/s, model load and pickle "
-            f"writes included), extracted row vs the pipeline's embedding max_abs_err {ext_err:.3g} (float32's "
-            f"fixed tol {TOL_FEATS}), vs the float32 pipeline's {ext_err32:.3g} (bound {ext_bound:.3g}: twice "
-            f"the bfloat16 pipeline's), train {2 * gan_steps} + joint {gan_steps} steps on the card, sample {n_samples} x "
-            f"{len(names)} PNGs in {sample_s:.1f} s; launches " + "; ".join(f"{k} {v}" for k, v in counts.items()))
-        if counts != want:
-            raise AssertionError(f"launches {counts}, expected {want}: K1, K2 (+ K3) once per step or batch")
+    extract_batches = sum(math.ceil(n * DATA_CAPTIONS / TRAIN_BATCH) for n in (DATA_TRAIN, DATA_CLASSES))
+    per_step = {"pretrain": steps, "extract": extract_batches, "train": 0, "joint": gan_steps, "sample": 0}
+    want = {name: {"mel_fused": n, "gru_fwd": n, "gru_bwd": n if name in ("pretrain", "joint") else 0,
+                   "mel_framed": 0} for name, n in per_step.items()}
+    log(f"[data] {card}: through entrypoints.main: pretrain {steps} steps {pre_s:.1f} s, extract "
+        f"{n_ext} utterances in {ext_s:.1f} s ({n_ext / ext_s:.1f} utterances/s, model load and pickle "
+        f"writes included), extracted row vs the pipeline's embedding max_abs_err {ext_err:.3g} (float32's "
+        f"fixed tol {TOL_FEATS}), vs the float32 pipeline's {ext_err32:.3g} (bound {ext_bound:.3g}: twice "
+        f"the bfloat16 pipeline's), train {2 * gan_steps} + joint {gan_steps} steps on the card, sample {n_samples} x "
+        f"{len(names)} PNGs in {sample_s:.1f} s; launches " + "; ".join(f"{k} {v}" for k, v in counts.items()))
+    if counts != want:
+        raise AssertionError(f"launches {counts}, expected {want}: K1, K2 (+ K3) once per step or batch")
 
-        # the steps on loader batches through the pinned prefetch, against
-        # batches made ahead in host memory (the train and gan phases')
-        cli_cfg = config.apply_overrides(config.cfg_from_file("cfg/pretrain_encoder_birds.yml"),
-                                         [f"DATA_DIR={tree}"])
-        state = init_encoder_state(cli_cfg, device="cuda")
-        host = cli.speech_host_batches(cli_cfg)
-        made = list(itertools.islice(host(0), 2))
-        enc_step = lambda b: encoder_train_step(state, cli.featurize(b, p, "cuda"))  # noqa: E731
-        runs_enc = {
-            "made ahead, pageable copy in the step": loader_window(itertools.cycle(made), enc_step, DATA_STEPS),
-            "made ahead, pinned prefetch": loader_window(
-                Prefetcher(itertools.cycle(made), depth=cli.SPEECH_PREFETCH, device="cuda"), enc_step, DATA_STEPS),
-            "loader, pinned prefetch": loader_window(
-                Prefetcher(itertools.chain.from_iterable(host(e) for e in range(4)), depth=cli.SPEECH_PREFETCH,
-                           device="cuda"), enc_step, DATA_STEPS),
-        }
-        del state
-        st = gan.init_state(birds_cfg, device="cuda")
-        factory = cli.gan_batch_factory(birds_cfg)
-        made = list(factory(0))
-        gan_step = lambda b: gan.train_step(st, b)  # noqa: E731
-        runs_gan = {
-            "made ahead, copy in the step": loader_window(itertools.cycle(made), gan_step, DATA_GAN_STEPS),
-            "loader, pinned prefetch": loader_window(
-                Prefetcher(itertools.chain.from_iterable(factory(e) for e in range(DATA_GAN_STEPS)),
-                           depth=PREFETCH_DEPTH, device="cuda"), gan_step, DATA_GAN_STEPS),
-        }
-        del st
-        for what, results, ref in (("encoder", runs_enc, "encoder"), ("GAN", runs_gan, "gan")):
-            log(f"[data] {card}: {what} step, {DATA_STEPS if what == 'encoder' else DATA_GAN_STEPS} steps "
-                f"each, no sync between steps; the {ref} phase's median on made-ahead batches (synchronized "
-                f"per step) {MADE_AHEAD_MS.get(ref, float('nan')):.2f} ms: "
-                + "; ".join(f"{k}: {window_line(w)}" for k, w in results.items()))
-        for w in (*runs_enc.values(), *runs_gan.values()):
-            if not np.isfinite(w["ms_per_step"]):
-                raise AssertionError(f"a timed window failed: {w}")
-        log(f"[data] phase took {time.time() - t_phase:.1f} s")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    return {k: sum(c[k] for c in counts.values()) for k in KERNELS}
+    # the steps on loader batches through the pinned prefetch, against
+    # batches made ahead in host memory (the train and gan phases')
+    cli_cfg = config.apply_overrides(config.cfg_from_file("cfg/pretrain_encoder_birds.yml"),
+                                     [f"DATA_DIR={tree}"])
+    state = init_encoder_state(cli_cfg, device="cuda")
+    host = cli.speech_host_batches(cli_cfg)
+    made = list(itertools.islice(host(0), 2))
+    enc_step = lambda b: encoder_train_step(state, cli.featurize(b, p, "cuda"))  # noqa: E731
+    runs_enc = {
+        "made ahead, pageable copy in the step": loader_window(itertools.cycle(made), enc_step, DATA_STEPS),
+        "made ahead, pinned prefetch": loader_window(
+            Prefetcher(itertools.cycle(made), depth=cli.SPEECH_PREFETCH, device="cuda"), enc_step, DATA_STEPS),
+        "loader, pinned prefetch": loader_window(
+            Prefetcher(itertools.chain.from_iterable(host(e) for e in range(4)), depth=cli.SPEECH_PREFETCH,
+                       device="cuda"), enc_step, DATA_STEPS),
+    }
+    del state
+    st = gan.init_state(birds_cfg, device="cuda")
+    factory = cli.gan_batch_factory(birds_cfg)
+    made = list(factory(0))
+    gan_step = lambda b: gan.train_step(st, b)  # noqa: E731
+    runs_gan = {
+        "made ahead, copy in the step": loader_window(itertools.cycle(made), gan_step, DATA_GAN_STEPS),
+        "loader, pinned prefetch": loader_window(
+            Prefetcher(itertools.chain.from_iterable(factory(e) for e in range(DATA_GAN_STEPS)),
+                       depth=PREFETCH_DEPTH, device="cuda"), gan_step, DATA_GAN_STEPS),
+    }
+    del st
+    for what, results, ref in (("encoder", runs_enc, "encoder"), ("GAN", runs_gan, "gan")):
+        log(f"[data] {card}: {what} step, {DATA_STEPS if what == 'encoder' else DATA_GAN_STEPS} steps "
+            f"each, no sync between steps; the {ref} phase's median on made-ahead batches (synchronized "
+            f"per step) {MADE_AHEAD_MS.get(ref, float('nan')):.2f} ms: "
+            + "; ".join(f"{k}: {window_line(w)}" for k, w in results.items()))
+    for w in (*runs_enc.values(), *runs_gan.values()):
+        if not np.isfinite(w["ms_per_step"]):
+            raise AssertionError(f"a timed window failed: {w}")
+    log(f"[data] phase took {time.time() - t_phase:.1f} s")
+    return {k: sum(c[k] for c in counts.values()) for k in KERNELS}, {"tree": tree, "samples": samples, "runs": runs}
+
+
+def inception_with_random_bn(num_classes: int, images: np.ndarray) -> dict[str, torch.Tensor]:
+    """A seeded InceptionV3 state_dict on the card with every BN scale and
+    bias randomized and its running statistics those of one train-mode pass
+    over ``images`` (quantized and resized as the extractor does). At
+    statistics of 0 and 1 eval-mode BN is nearly an identity, which would
+    hide a wrong eps or a swapped mean and variance; at random statistics
+    the BN offsets swamp the signal within a few layers and every image
+    gets the same features (the first chip run read IS 1.0000 and FID(X, Y)
+    0.0000 so). Statistics of the images themselves keep both away."""
+    model = InceptionV3(num_classes)
+    init_inception(model, torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED + 1)
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        for m in bns:
+            m.weight.copy_(0.5 + torch.rand(m.weight.shape, generator=gen))
+            m.bias.copy_(0.2 * torch.randn(m.bias.shape, generator=gen))
+            m.momentum = 0.0  # the pass below sets the running statistics to its batch's
+        model.to("cuda").train()(preprocess(torch.from_numpy(images).cuda(), 299, True))
+    for m in bns:
+        del m.momentum  # back to the class's 0.9
+    return model.eval().state_dict()
+
+
+def inception_work(model: torch.nn.Module, batch: int, size: int) -> tuple[float, float]:
+    """(operations, bytes) of one InceptionV3 forward on ``batch`` images at
+    ``size`` px: 2 per multiply-add of every conv and of fc (BN, ReLU and the
+    pools are a few per element, left out), counted from the layer shapes of
+    a one-image forward; bytes: the input read once, every parameter and BN
+    statistic once, pool3 and the logits written once."""
+    macs = []
+
+    def hook(m, inp, out):
+        w = m.weight
+        macs.append(out.numel() * (w[0].numel() if isinstance(m, torch.nn.Conv2d) else w.shape[1]))
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        out = model(torch.zeros(1, size, size, 3, device=dev))
+    for h in handles:
+        h.remove()
+    state_bytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    out_bytes = batch * 4 * sum(v.shape[1] for v in out.values())
+    return 2.0 * batch * sum(macs), batch * size * size * 3 * 4 + state_bytes + out_bytes
+
+
+def generated_images(g, n: int, seed: int) -> np.ndarray:
+    """``n`` top-scale images [n, 256, 256, 3] in [-1, 1] (host float32) of
+    eval-mode ``g`` for seeded random embeddings, EVAL_GEN_BATCH at a time."""
+    emb = np.random.default_rng(seed).standard_normal((n, g.ca_net.fc.in_features)).astype(np.float32)
+    out = np.empty((n, 256, 256, 3), np.float32)
+    with torch.no_grad():
+        for i in range(0, n, EVAL_GEN_BATCH):
+            img = gan.sample(g, emb[i:i + EVAL_GEN_BATCH], seed=seed, offset=i)[-1]
+            out[i:i + EVAL_GEN_BATCH] = img.permute(0, 2, 3, 1).cpu().numpy()
+    return out
+
+
+def phase_eval(card: str, data: dict[str, str]) -> dict[str, int]:
+    """The evaluation layer at full width: InceptionV3 at 299 px, float32,
+    card against the CPU on 8 of G's 256 px images (BN scale and bias
+    random, statistics from G's images); 2 x EVAL_IMAGES images
+    of cfg/birds_3stages.yml's seeded G (its bfloat16) through
+    InceptionFeatures(quantize_input=True) at EVAL.FID_BATCH, IS and FID,
+    pipelined extraction bitwise equal to the serial loop, times, the bound
+    and peak memory; then the eval, eval --retrieval, finetune-inception
+    and eval --finetuned_ckpt commands on the data phase's tree (``data``:
+    its ``tree``, ``samples`` and ``runs``)."""
+    t_phase = time.time()
+    cfg = config.cfg_from_file("cfg/birds_3stages.yml")
+    batch = int(cfg.EVAL.FID_BATCH)
+    n_classes = int(cfg.ENCODER.N_CLASSES)
+    reset_counts()
+
+    g = build_generator(cfg)
+    gan.init_weights(g, [], torch.Generator().manual_seed(SEED))
+    g.to("cuda").eval()
+    t0 = time.perf_counter()
+    x, y = (generated_images(g, EVAL_IMAGES, SEED + k) for k in (1, 2))
+    gen_s = time.perf_counter() - t0
+    del g
+    if not (np.isfinite(x).all() and np.isfinite(y).all()):
+        raise AssertionError("[eval] G's images are not finite")
+
+    # card vs CPU, 8 images at 299 px, float32
+    sd = inception_with_random_bn(n_classes, x[-batch:])
+    ex = InceptionFeatures(sd, num_classes=n_classes, quantize_input=True, device="cuda")
+    ex_cpu = InceptionFeatures(sd, num_classes=n_classes, quantize_input=True, device="cpu")
+    x8 = torch.from_numpy(x[:EVAL_CHECK])
+    pre_err = (preprocess(x8.cuda(), 299, True).cpu() - preprocess(x8, 299, True)).abs().max().item()
+    got, want = ex.forward(x8.cuda()), ex_cpu.forward(x8)
+    errs = {k: ((a.cpu() - b).abs().max().item(), b.abs().max().item()) for k, a, b in
+            zip(("pool3", "logits"), got, want)}
+    log(f"[eval] {card}: InceptionV3 299 px float32 on {EVAL_CHECK} of G's 256 px images, card vs CPU: "
+        + ", ".join(f"{k} max_abs_err {e:.3g} (largest {m:.3g}, bound {TOL_INCEPTION:g} of it)"
+                    for k, (e, m) in errs.items())
+        + f"; quantized preprocess max_abs_err {pre_err:.3g} (tol {TOL_PREPROCESS:g})")
+    if not all(e <= TOL_INCEPTION * m for e, m in errs.values()) or not pre_err <= TOL_PREPROCESS:
+        raise AssertionError(f"[eval] card vs CPU: {errs}, preprocess {pre_err}")
+    del ex_cpu
+
+    # full width: extraction pipelined and serial, IS, FID
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    px, lx = ex.extract(x, batch)
+    pipe_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    serial = []
+    for i in range(0, EVAL_IMAGES, batch):  # one batch at a time, a blocking copy back; the tail padded alike
+        b = x[i:i + batch]
+        m = len(b)
+        if m < batch:
+            b = np.concatenate([b, np.zeros((batch - m, *b.shape[1:]), np.float32)])
+        p3, lg = ex.forward(torch.from_numpy(b).cuda())
+        serial.append((p3.cpu().numpy()[:m], lg.cpu().numpy()[:m]))
+    serial_s = time.perf_counter() - t0
+    if not (np.array_equal(px, np.concatenate([p for p, _ in serial]))
+            and np.array_equal(lx, np.concatenate([lg for _, lg in serial]))):
+        raise AssertionError("[eval] pipelined extraction is not bitwise the serial loop's")
+    py, _ = ex.extract(y, batch)
+    is_mean, is_std = inception_score_from_probs(softmax(lx), EVAL_SPLITS)
+    t0 = time.perf_counter()
+    sx, sy = gaussian_stats(px), gaussian_stats(py)
+    fid_xx = fid_from_stats(*sx, *sx)
+    fid_xy = fid_from_stats(*sx, *sy)
+    fid_ms = 1e3 * (time.perf_counter() - t0) / 2
+    t0 = time.perf_counter()
+    covmean = scipy.linalg.sqrtm(sx[1] @ sy[1])
+    sqrtm_ms = 1e3 * (time.perf_counter() - t0)
+    diff = sx[0] - sy[0]
+    fid_scipy = float(diff @ diff + np.trace(sx[1]) + np.trace(sy[1]) - 2.0 * np.trace(covmean.real))
+    log(f"[eval] {card}: {EVAL_IMAGES} + {EVAL_IMAGES} G images (cfg/birds_3stages.yml, "
+        f"{compute_dtype(cfg)}, batch {EVAL_GEN_BATCH}) in {gen_s:.1f} s; IS over {EVAL_SPLITS} splits "
+        f"{is_mean:.4f} +- {is_std:.4f}; FID(X, X) {fid_xx:.3g}; FID(X, Y) {fid_xy:.4f} (scipy.linalg.sqrtm "
+        f"route, the JAX package's: {fid_scipy:.4f}); pipelined extraction bitwise equal to the serial loop")
+    if not (np.isfinite(is_mean) and is_mean >= 1.0 and abs(fid_xx) <= 1e-3 and np.isfinite(fid_xy)
+            and fid_xy > 0):
+        raise AssertionError(f"[eval] IS {is_mean}, FID(X, X) {fid_xx}, FID(X, Y) {fid_xy}")
+
+    xb = torch.from_numpy(x[:batch]).cuda()
+    pre = preprocess(xb, 299, True)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: ex.model(pre), reps=10)
+    pre_ms = time_ms(lambda: preprocess(xb, 299, True), reps=10)
+    flops, nbytes = inception_work(ex.model, batch, 299)
+    bound_ms, bound_by = bound(flops, nbytes)
+    log(f"[eval] {card}: extraction of {EVAL_IMAGES} images at batch {batch} (host clock, copies included): "
+        f"pipelined {EVAL_IMAGES / pipe_s:.1f} images/s, serial {EVAL_IMAGES / serial_s:.1f} images/s; "
+        f"device ms per batch of {batch}: InceptionV3 forward {fwd_ms:.3f} (bound {bound_ms:.3f} by {bound_by}: "
+        f"{flops / 1e9:.1f} GFLOP at the fp32 peak, TF32 off; {nbytes / 1e6:.1f} MB), quantize + resize "
+        f"256 -> 299 {pre_ms:.3f}; peak memory {peak:.0f} MiB; FID host ms (two eigendecompositions) "
+        f"{fid_ms:.1f}, scipy.linalg.sqrtm of the 2048^2 product {sqrtm_ms:.1f}")
+    del ex, xb, pre
+
+    # the commands, on the data phase's tree: each passes or raises
+    images_dir = os.path.join(data["tree"], "images")
+    rec = entrypoints.main(["eval", "--gen_dir", data["samples"], "--real_dir", images_dir, "--json"])
+    if rec["inception"] != "random-weight" or not (rec["is_mean"] >= 1.0 and np.isfinite(rec["fid"])):
+        raise AssertionError(f"[eval] eval: {rec}")
+    ret = entrypoints.main(["eval", "--retrieval", os.path.join(data["tree"], "test", "speech-embeddings.pickle"),
+                            os.path.join(data["tree"], "test", "char-CNN-RNN-embeddings.pickle")])
+    if not all(0.0 <= ret[d][k] <= 1.0 for d in ret for k in ("r@1", "r@5", "r@10", "mrr", "map")):
+        raise AssertionError(f"[eval] retrieval: {ret}")
+    t0 = time.time()
+    run = entrypoints.main(["finetune-inception", "--cfg", "cfg/birds_3stages.yml", "--data_dir", data["tree"],
+                            "--output_dir", data["runs"], "--epochs", "1", "--batch", str(FINETUNE_BATCH)])
+    ft_s = time.time() - t0
+    rec_ft = entrypoints.main(["eval", "--gen_dir", data["samples"], "--finetuned_ckpt", os.path.join(run, "ckpt"),
+                               "--json"])
+    if rec_ft["inception"] != "finetuned" or not rec_ft["is_mean"] >= 1.0:
+        raise AssertionError(f"[eval] eval --finetuned_ckpt: {rec_ft}")
+
+    # the finetune step at full width: 299 px, batch FINETUNE_BATCH, from the 256 px G images
+    state = init_inception_state(n_classes, SEED, device="cuda")
+    step = make_inception_train_step(299)
+    labels = np.arange(FINETUNE_BATCH) % n_classes
+    times, ft_peak, mets = timed_steps(lambda: step(state, x[:FINETUNE_BATCH], labels), FINETUNE_STEPS)
+    del state
+    torch.cuda.empty_cache()
+    counts = read_counts()
+    log(f"[eval] {card}: eval of {rec['n_gen']} sample PNGs vs the tree's images {json.dumps(rec)}; retrieval "
+        f"(speech vs teacher, test split) q2t r@1 {ret['q2t']['r@1']:.3f} map {ret['q2t']['map']:.3f}; "
+        f"finetune-inception 1 epoch at 299 px, batch {FINETUNE_BATCH}: {ft_s:.1f} s; eval --finetuned_ckpt "
+        f"{json.dumps(rec_ft)}; finetune step at 299 px, batch {FINETUNE_BATCH} (host clock, synchronized): "
+        f"median {np.median(times):.2f} ms (min {min(times):.2f}, max {max(times):.2f}, n={len(times)}), "
+        f"peak {ft_peak:.0f} MiB, ce {float(mets['ce']):.4f}; launches {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"[eval] launches {counts}: the eval path runs none of the kernels")
+    log(f"[eval] phase took {time.time() - t_phase:.1f} s")
+    return counts
 
 
 def dtype_audit(models: gan.GanModels, run) -> dict[str, set]:
@@ -1822,7 +2049,14 @@ def main() -> None:
     card = f"{name} ({smi})"
     paths = {"serve": phase_serve(card), "train": phase_train(card), "mel_ab": phase_mel_ab(card),
              "gan": phase_gan(card, "cfg/birds_3stages.yml"), "joint": phase_gan(card, "cfg/birds_joint_ft.yml"),
-             "bf16": phase_bf16(card), "loop": phase_loop(card), "data": phase_data(card)}
+             "bf16": phase_bf16(card), "loop": phase_loop(card)}
+    os.makedirs("output", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_", dir="output")
+    try:
+        paths["data"], made = phase_data(card, root)
+        paths["eval"] = phase_eval(card, made)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     rows = []
     for kname, (_, src, replaces) in KERNELS.items():
         by_path = {path: counts[kname] for path, counts in paths.items()}

@@ -17,6 +17,9 @@ rebuilt on PyTorch for an NVIDIA Hopper card:
         D phase and G phase with Adam, EMA
     cli.run_sampling → GanTrainer.sample_to_dir: BN recalc under the EMA
         (train.gan.bn_recalc) → train.gan.sample → PNG tree
+    cli.run_eval → eval.InceptionFeatures (models.inception.InceptionV3 at
+        299 px) → eval.inception_score / eval.fid; cli.run_retrieval →
+        eval.retrieval; cli.run_inception_finetune → eval.finetune
 
 Both training loops checkpoint the full train state (utils.checkpoint,
 ``torch.save`` files readable on the card and the CPU) and resume exactly
@@ -25,8 +28,8 @@ trained. Real data comes from a StackGAN tree (data.stackgan, with the C++
 JPEG loader of native/), through a prefetch thread that copies batches to
 the card from pinned buffers (data.pipeline); cli.run_embedding_extraction
 writes the speech embeddings the GAN trains on. ``python -m s2i_tpu_torch``
-(entrypoints.py) runs pretrain / extract / train / sample from the command
-line.
+(entrypoints.py) runs pretrain / extract / train / sample / eval /
+finetune-inception from the command line.
 
 ``ops.mel_kernel.logmel_framed`` (csrc/mel_framed.cu) computes the log-mel
 from pre-framed rows, for the frontend A/B only.
@@ -36,7 +39,10 @@ Entry points (``pipeline.SpeechToImage`` and its ``from_checkpoints``,
 ``train.encoder.init_encoder_state``, ``train.gan.init_state``,
 ``train.loop.GanTrainer``, ``cli.run_encoder_pretrain``,
 ``cli.run_embedding_extraction``, ``cli.run_gan_training``,
-``cli.run_sampling``, the command line) run on ``device="cuda"`` unless
+``cli.run_sampling``, ``eval.InceptionFeatures``,
+``eval.retrieval_metrics``, ``eval.finetune.init_inception_state``,
+``cli.run_eval``, ``cli.run_retrieval``, ``cli.run_inception_finetune``,
+the command line) run on ``device="cuda"`` unless
 the caller passes ``device="cpu"`` (``--device cpu``); without a card
 they raise instead of drifting to the CPU.
 On a CPU tensor every kernel wrapper runs its plain PyTorch version, which

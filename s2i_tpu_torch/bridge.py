@@ -16,13 +16,16 @@ tree, or a restored checkpoint); nothing here imports JAX. Output: flat
   ``s2i_tpu.port.export_dnet``);
 - :func:`states_from_gan`: both at once from a GAN state's trees, picking the
   joint checkpoint's ``enc`` subtrees and the EMA weights as the JAX
-  ``SpeechToImage`` does.
+  ``SpeechToImage`` does;
+- :func:`inception_state_dict`: an ``InceptionV3``'s ``{"params",
+  "batch_stats"}`` → ``models.inception.InceptionV3`` (torchvision's names).
 
 And the inverse, port state_dicts → Flax trees of numpy arrays, so that a
 state the port made can be handed to the JAX package (the step parity
 tests start both from the port's seeded init this way):
 :func:`gnet_trees`, :func:`dnet_trees` (the port's copies of
-``port_gnet``/``port_dnet``) and :func:`encoder_trees`.
+``port_gnet``/``port_dnet``), :func:`encoder_trees` and
+:func:`inception_trees`.
 """
 
 from __future__ import annotations
@@ -68,6 +71,29 @@ def encoder_state_dict(variables: Mapping[str, Any]) -> dict[str, np.ndarray]:
         if head in params:
             sd[f"{head}.weight"] = _np(params[head]["kernel"]).T.copy()
             sd[f"{head}.bias"] = _np(params[head]["bias"])
+    return sd
+
+
+def inception_state_dict(variables: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """``{"params", "batch_stats"}`` of a Flax ``InceptionV3`` → the port's
+    ``InceptionV3`` state_dict: conv kernels HWIO → OIHW, the ``fc`` kernel
+    [in, out] → [out, in], BN scale/bias → weight/bias and its
+    ``batch_stats`` mean/var → running_mean/running_var."""
+    sd: dict[str, np.ndarray] = {}
+
+    def walk(p: Mapping, s: Mapping, prefix: str) -> None:
+        for k, v in p.items():
+            if k == "conv":
+                sd[f"{prefix}conv.weight"] = _conv2d(v["kernel"])
+            elif k == "bn":
+                _bn(sd, f"{prefix}bn", v, s["bn"])
+            elif k == "fc":
+                sd["fc.weight"] = _np(v["kernel"]).T.copy()
+                sd["fc.bias"] = _np(v["bias"])
+            else:
+                walk(v, s.get(k, {}), f"{prefix}{k}.")
+
+    walk(variables["params"], variables["batch_stats"], "")
     return sd
 
 
@@ -323,4 +349,29 @@ def encoder_trees(sd: Mapping) -> dict:
     for head in ("head", "cls"):
         if f"{head}.weight" in sd:
             params[head] = {"kernel": _np(sd[f"{head}.weight"]).T.copy(), "bias": _np(sd[f"{head}.bias"])}
+    return {"params": params, "batch_stats": stats}
+
+
+def inception_trees(sd: Mapping) -> dict:
+    """The port's ``InceptionV3`` state_dict → Flax ``{"params",
+    "batch_stats"}``, the inverse of :func:`inception_state_dict`."""
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree: dict, path: list[str], leaf: np.ndarray) -> None:
+        for p in path[:-1]:
+            tree = tree.setdefault(p, {})
+        tree[path[-1]] = leaf
+
+    bn_leaf = {"weight": (params, "scale"), "bias": (params, "bias"),
+               "running_mean": (stats, "mean"), "running_var": (stats, "var")}
+    for name, v in sd.items():
+        *path, layer, leaf = name.split(".")
+        if layer == "fc":
+            put(params, ["fc", "kernel" if leaf == "weight" else "bias"], _np(v).T.copy() if leaf == "weight" else _np(v))
+        elif layer == "conv":
+            put(params, path + ["conv", "kernel"], _hwio(v))
+        else:
+            tree, key = bn_leaf[leaf]
+            put(tree, path + ["bn", key], _np(v))
     return {"params": params, "batch_stats": stats}

@@ -1,7 +1,10 @@
 """The port's command-line plumbing and its drivers, the counterpart of
 ``s2i_tpu/cli.py``: config resolution, run directories, the batch factories
 (synthetic corpora or the StackGAN tree) and the train / sample / pretrain /
-extract drivers that ``entrypoints.py`` and ``python -m s2i_tpu_torch`` run.
+extract drivers that ``entrypoints.py`` and ``python -m s2i_tpu_torch`` run,
+and the metric drivers of ``scripts/eval.py`` and
+``scripts/finetune_inception.py`` (``run_eval``, ``run_retrieval``,
+``run_inception_finetune``).
 
     from s2i_tpu_torch import config, cli
     cfg = config.cfg_from_file("cfg/pretrain_encoder_birds.yml")
@@ -11,6 +14,7 @@ extract drivers that ``entrypoints.py`` and ``python -m s2i_tpu_torch`` run.
     cli.run_gan_training(cfg, steps=100, run_dir=run)     # train.loop.GanTrainer
     cli.run_gan_training(cfg, steps=200, run_dir=run)     # resumes at step 100
     cli.run_sampling(cfg)                                 # TRAIN.NET_G's run → PNG tree
+    cli.run_eval("<samples>", real_dir="<images>")        # {"is_mean", "is_std", "fid", ...}
 
 Both training loops checkpoint the full state (``<run_dir>/ckpt``, with the
 batch stream's place in ``train_progress.json``) and resume when given an
@@ -31,6 +35,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import datetime
+import glob
 import json
 import os
 import pickle
@@ -39,6 +44,7 @@ from typing import Callable, Iterable
 
 import numpy as np
 import torch
+from PIL import Image
 
 from s2i_tpu_torch import config
 from s2i_tpu_torch.audio.frontend import featurize, frontend_params_from_cfg
@@ -46,6 +52,11 @@ from s2i_tpu_torch.data import SyntheticGanDataset, SyntheticSpeechDataset, synt
 from s2i_tpu_torch.data.pipeline import Prefetcher
 from s2i_tpu_torch.data.stackgan import GanEpochIterator, SpeechEpochIterator, StackGanSplit, wav_batch
 from s2i_tpu_torch.device import compute_dtype, moment_dtype, resolve_device
+from s2i_tpu_torch.eval import (InceptionFeatures, fid_from_stats, gaussian_stats, inception_score_from_probs,
+                                retrieval_metrics)
+from s2i_tpu_torch.eval.finetune import init_inception_state, make_inception_train_step
+from s2i_tpu_torch.eval.inception_score import softmax
+from s2i_tpu_torch.eval.weights import load_torch_inception
 from s2i_tpu_torch.pipeline import build_encoder
 from s2i_tpu_torch.train.encoder import encoder_train_step, init_encoder_state
 from s2i_tpu_torch.train.loop import GanTrainer
@@ -54,17 +65,24 @@ from s2i_tpu_torch.utils import CheckpointManager, ScalarLogger
 SPEECH_PREFETCH = 2  # wav batches ahead (42 MB each at the birds width), as the JAX loop
 
 
+def add_device_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """``--gpu N`` and ``--device cpu``, which :func:`resolve_args_device` reads."""
+    p.add_argument("--gpu", dest="gpu_id", type=int, default=None, help="run on cuda:GPU (default: the current card)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda (default) or cpu: the plain PyTorch versions of the kernels, for tests")
+    return p
+
+
 def base_parser(description: str) -> argparse.ArgumentParser:
-    """The flags every entry point takes: the JAX package's (``--cfg
-    --data_dir --output_dir --manualSeed --gpu --set``) and ``--device``."""
+    """The flags every training or sampling entry point takes: the JAX
+    package's (``--cfg --data_dir --output_dir --manualSeed --gpu --set``)
+    and ``--device``."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--cfg", dest="cfg_file", default=None, help="YAML config")
     p.add_argument("--data_dir", default=None)
     p.add_argument("--output_dir", default=None)
     p.add_argument("--manualSeed", type=int, default=None)
-    p.add_argument("--gpu", dest="gpu_id", type=int, default=None, help="run on cuda:GPU (default: the current card)")
-    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="cuda (default) or cpu: the plain PyTorch versions of the kernels, for tests")
+    add_device_flags(p)
     p.add_argument("--set", dest="overrides", nargs="*", default=[], metavar="KEY=VAL",
                    help="config overrides, e.g. TRAIN.BATCH_SIZE=32")
     return p
@@ -420,3 +438,168 @@ def run_sampling(cfg, device: str | torch.device = "cuda") -> str:
         trainer.close()
     print(f"samples: {out_dir}")
     return out_dir
+
+
+def list_images(d: str, limit: int | None = None) -> list[str]:
+    """The PNGs and JPEGs under ``d`` (recursively), sorted, the first ``limit``."""
+    paths = sorted(glob.glob(os.path.join(d, "**", "*.png"), recursive=True)
+                   + glob.glob(os.path.join(d, "**", "*.jpg"), recursive=True))[:limit]
+    if not paths:
+        raise FileNotFoundError(f"no images under {d}")
+    return paths
+
+
+def extract_dir(ex, d: str, batch: int, limit: int | None = None,
+                img_size: int | None = None) -> tuple[np.ndarray, np.ndarray, int]:
+    """A directory of images through the extractor → (pool3, logits, n).
+
+    Decodes ``batch`` images at a time (the 30k-image protocol at 256 px is
+    ~24 GB as one float32 stack) and brings every image to one (H, W)
+    canvas: ``img_size``, or the first image's size. Images of another size
+    are PIL-bilinear resized to it on the host; a directory of one size
+    passes through untouched, so the extractor's resize to 299 px is its
+    only resample."""
+    paths = list_images(d, limit)
+    pools, logits, size = [], [], None
+    for i in range(0, len(paths), batch):
+        chunk = []
+        for p in paths[i: i + batch]:
+            with Image.open(p) as f:
+                im = f.convert("RGB")
+            if size is None:
+                size = (img_size, img_size) if img_size else (im.height, im.width)
+            if (im.height, im.width) != size:
+                im = im.resize((size[1], size[0]), Image.BILINEAR)
+            chunk.append(np.asarray(im, np.float32) / 127.5 - 1.0)
+        p3, lg = ex.extract(np.stack(chunk), batch)
+        pools.append(p3)
+        logits.append(lg)
+    return np.concatenate(pools), np.concatenate(logits), len(paths)
+
+
+def _load_embeddings(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """An embedding pickle → ([rows, D] float32, group ids). An extraction
+    pickle [N_img, captions, D] groups rows by image (an image's other
+    captions are positives too); a flat [N, D] one is paired."""
+    with open(path, "rb") as f:
+        e = np.asarray(pickle.load(f, encoding="latin1"), np.float32)
+    if e.ndim == 3:
+        return e.reshape(-1, e.shape[-1]), np.repeat(np.arange(e.shape[0]), e.shape[1])
+    return e.reshape(-1, e.shape[-1]), np.arange(e.shape[0])
+
+
+def run_retrieval(query_pkl: str, target_pkl: str, device: str | torch.device = "cuda") -> dict:
+    """Speech↔teacher retrieval over two embedding pickles (e.g. the
+    extracted ``speech-embeddings.pickle`` against the split's
+    ``char-CNN-RNN-embeddings.pickle``), aligned by group id: only the
+    image ids both hold are kept, so that every query group keeps its
+    targets in both directions (a row-count cut would strand groups)."""
+    (q, qid), (t, tid) = _load_embeddings(query_pkl), _load_embeddings(target_pkl)
+    n_groups = min(int(qid.max()), int(tid.max())) + 1
+    qm, tm = qid < n_groups, tid < n_groups
+    if not (qm.all() and tm.all()):
+        print(f"# group counts differ: keeping the common first {n_groups} "
+              f"({int(qm.sum())} query rows, {int(tm.sum())} target rows)")
+    return retrieval_metrics(q[qm], t[tm], query_ids=qid[qm], target_ids=tid[tm], device=device)
+
+
+def inception_weights(weights: str | None = None, finetuned_ckpt: str | None = None,
+                      num_classes: int | None = None) -> tuple[dict | None, int]:
+    """(InceptionV3 state_dict, classes) from a torchvision-layout ``.pth``
+    or ``.pt`` state_dict, or from the latest checkpoint of a
+    ``finetune-inception`` run's ``ckpt`` directory; (None, ``num_classes``
+    or 1000) for seeded random weights. A ``num_classes`` other than the
+    weights' raises."""
+    if weights:
+        if not weights.endswith((".pth", ".pt")):
+            raise ValueError("--weights takes a torch .pth state_dict")
+        sd = load_torch_inception(torch.load(weights, map_location="cpu", weights_only=True))
+    elif finetuned_ckpt:
+        restored = CheckpointManager(finetuned_ckpt).restore_latest_raw()
+        if restored is None:
+            raise FileNotFoundError(f"no checkpoint under {finetuned_ckpt}")
+        sd = load_torch_inception(restored[0]["model"])
+    else:
+        return None, num_classes or 1000
+    n = int(sd["fc.weight"].shape[0])
+    if num_classes is not None and num_classes != n:
+        raise ValueError(f"--num_classes {num_classes}, but the weights have {n} classes")
+    return sd, n
+
+
+def run_eval(
+    gen_dir: str,
+    real_dir: str | None = None,
+    weights: str | None = None,
+    finetuned_ckpt: str | None = None,
+    num_classes: int | None = None,
+    splits: int = 10,
+    batch: int = 64,
+    limit: int | None = None,
+    img_size: int | None = None,
+    protocol: str = "exact",
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Inception Score of the images under ``gen_dir`` and, with
+    ``real_dir``, their FID against those: one extractor pass over each
+    directory (pool3 feeds FID, the logits IS). ``protocol`` "pytorch-fid"
+    quantizes inputs through uint8 before the 299 px resize, a no-op on
+    decoded files (already uint8). Returns ``{"is_mean", "is_std",
+    "n_gen", "inception"[, "fid"]}`` with ``inception`` "finetuned" when
+    weights were given, else "random-weight"."""
+    if protocol not in ("exact", "pytorch-fid"):
+        raise ValueError(f"unknown protocol {protocol!r}: exact or pytorch-fid")
+    sd, n_classes = inception_weights(weights, finetuned_ckpt, num_classes)
+    ex = InceptionFeatures(sd, num_classes=n_classes, quantize_input=protocol == "pytorch-fid", device=device)
+    gen_pool, gen_logits, n_gen = extract_dir(ex, gen_dir, batch, limit, img_size)
+    mean, std = inception_score_from_probs(softmax(gen_logits), splits)
+    rec = {"is_mean": round(float(mean), 4), "is_std": round(float(std), 4), "n_gen": int(n_gen),
+           "inception": "finetuned" if sd is not None else "random-weight"}
+    if real_dir:
+        real_pool, _, _ = extract_dir(ex, real_dir, batch, limit, img_size)
+        rec["fid"] = round(fid_from_stats(*gaussian_stats(gen_pool), *gaussian_stats(real_pool)), 4)
+    return rec
+
+
+def run_inception_finetune(
+    cfg,
+    epochs: int = 20,
+    batch: int = 32,
+    lr: float = 1e-4,
+    warm_start: str | None = None,
+    image_size: int = 299,
+    base_size: int = 256,
+    device: str | torch.device = "cuda",
+) -> str:
+    """Fine-tune InceptionV3 on ``ENCODER.N_CLASSES`` classes of
+    ``DATA_DIR``'s train split (labels ``class_id % N_CLASSES``) for
+    ``epochs`` epochs of ``batch`` images loaded at ``base_size`` and
+    resized to ``image_size`` on the device, from the seeded init or a
+    torchvision ``.pth`` (``warm_start``, class head excluded). Each epoch
+    appends its last step's ``ce``/``acc`` to ``scalars.jsonl`` and saves
+    the state to ``<run dir>/ckpt``, which ``eval --finetuned_ckpt`` reads.
+    Returns the run dir."""
+    dev = resolve_device(device)
+    warm = None
+    if warm_start:
+        warm = load_torch_inception(torch.load(warm_start, map_location="cpu", weights_only=True))
+    run_dir = make_run_dir(cfg, "inception")
+    n_classes = int(cfg.ENCODER.N_CLASSES)
+    state = init_inception_state(n_classes, int(cfg.SEED), lr, warm, device=dev)
+    step = make_inception_train_step(image_size)
+    ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"))
+    logger = ScalarLogger(run_dir)
+    split = StackGanSplit(cfg.DATA_DIR, "train")
+    try:
+        for epoch in range(epochs):
+            it = GanEpochIterator(split, batch, 1, base_size=base_size, seed=int(cfg.SEED) + epoch)
+            mets = {}
+            for b in it:
+                mets = step(state, b["images"][0], b["class_id"] % n_classes)
+            logger.log(state.step, {k: float(v) for k, v in mets.items()})
+            ckpt.save(state.step, state)
+            print(f"epoch {epoch}: {({k: round(float(v), 3) for k, v in mets.items()})}")
+    finally:
+        logger.close()
+    print(f"run dir: {run_dir}")
+    return run_dir

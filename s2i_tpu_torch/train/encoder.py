@@ -17,7 +17,6 @@ package.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
@@ -25,17 +24,10 @@ from torch import nn
 
 from s2i_tpu_torch.device import resolve_device
 from s2i_tpu_torch.models.encoder import BiGRU, SpeechEncoder
-from s2i_tpu_torch.models.layers import BatchNorm
+from s2i_tpu_torch.models.layers import BatchNorm, lecun_normal_
 from s2i_tpu_torch.pipeline import build_encoder
 from s2i_tpu_torch.train.losses import distillation_loss
 from s2i_tpu_torch.utils.checkpoint import load_optimizer
-
-
-def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
-    """Flax's default kernel init: truncated normal (±2σ) of variance
-    1/fan_in, σ corrected for the truncation."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
 
 
 @torch.no_grad()
@@ -45,9 +37,9 @@ def init_weights(model: SpeechEncoder, gen: torch.Generator) -> None:
     recurrent kernel with a zero recurrent bias; BN scale 1, bias 0."""
     for m in model.modules():
         if isinstance(m, nn.Conv1d):
-            _lecun_normal_(m.weight, m.in_channels * m.kernel_size[0], gen)
+            lecun_normal_(m.weight, m.in_channels * m.kernel_size[0], gen)
         elif isinstance(m, nn.Linear):
-            _lecun_normal_(m.weight, m.in_features, gen)
+            lecun_normal_(m.weight, m.in_features, gen)
             m.bias.zero_()
         elif isinstance(m, BatchNorm):
             m.weight.fill_(1.0)
@@ -55,7 +47,7 @@ def init_weights(model: SpeechEncoder, gen: torch.Generator) -> None:
         elif isinstance(m, BiGRU):
             for name, p in m.named_parameters():
                 if name.startswith("weight_ih"):
-                    _lecun_normal_(p, p.shape[1], gen)
+                    lecun_normal_(p, p.shape[1], gen)
                 elif name.startswith("weight_hh"):
                     nn.init.orthogonal_(p, generator=gen)  # = W_h^T: W_h's rows orthonormal
                 else:

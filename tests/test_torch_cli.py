@@ -8,6 +8,7 @@ JAX package's ``StackGanSplit`` reads, a PNG per test file name, each run
 dir's ``config.yml``, and a mid-epoch resume on loader batches bitwise equal
 to the straight run. No JAX step is compiled."""
 
+import json
 import os
 import pickle
 import runpy
@@ -96,6 +97,23 @@ def test_reference_workflow_runs_through_the_cli(tmp_path, tree):
                   "EVAL.NUM_SAMPLES_PER_EMB=2", f"TRAIN.NET_G={os.path.join(gan_run, 'ckpt')}")
     names = sorted(f.replace("/", "_") + ".png" for f in split.filenames)
     assert sorted(os.listdir(os.path.join(samples, "0"))) == sorted(os.listdir(os.path.join(samples, "1"))) == names
+
+
+def test_finetune_inception_writes_a_run_that_eval_loads(tmp_path, tree):
+    run_d = run(tmp_path, tree, "finetune-inception", "--cfg", "cfg/birds_3stages.yml", "--set", "ENCODER.N_CLASSES=2",
+                "--epochs", "1", "--batch", "3", "--image_size", "75", "--base_size", "64")
+    assert os.path.basename(run_d).startswith("birds_3stages_inception_")
+    assert config.cfg_from_file(os.path.join(run_d, "config.yml")).DATA_DIR == tree
+    (line,) = open(os.path.join(run_d, "scalars.jsonl")).read().splitlines()
+    assert {"ce", "acc"} <= set(json.loads(line)) and np.isfinite(json.loads(line)["ce"])
+    ckpt = os.path.join(run_d, "ckpt")
+    raw, step = CheckpointManager(ckpt).restore_latest_raw()
+    assert step == raw["step"] == 2  # 6 train images, batch 3
+    sd, n = cli.inception_weights(finetuned_ckpt=ckpt)
+    assert n == 2 and sd.keys() == raw["model"].keys()
+    assert all(torch.equal(sd[k], raw["model"][k]) for k in sd)
+    with pytest.raises(ValueError, match="2 classes"):
+        cli.inception_weights(finetuned_ckpt=ckpt, num_classes=1000)
 
 
 def test_module_entry_and_the_card_requirement(tmp_path, tree, monkeypatch):

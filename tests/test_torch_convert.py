@@ -11,17 +11,20 @@ warm-start a trainer. No JAX step is compiled."""
 
 import os
 
+import jax
 import numpy as np
 import optax
 import pytest
 import torch
 
 from s2i_tpu import config as jax_config
+from s2i_tpu.eval.finetune import InceptionTrainState as JaxInceptionTrainState
 from s2i_tpu.train.encoder import EncoderTrainState
 from s2i_tpu.train.gan import GanTrainState
 from s2i_tpu.utils import CheckpointManager as OrbaxCheckpoints
-from s2i_tpu_torch import bridge, config
+from s2i_tpu_torch import bridge, cli, config
 from s2i_tpu_torch.audio.frontend import frontend_params_from_cfg
+from s2i_tpu_torch.eval.finetune import init_inception_state
 from s2i_tpu_torch.pipeline import SpeechToImage
 from s2i_tpu_torch.train import gan
 from s2i_tpu_torch.train.encoder import init_encoder_state
@@ -166,3 +169,28 @@ def test_converter_refuses_a_mismatched_config(tmp_path):
         orbax_to_torch.main([str(tmp_path / "jax"), str(tmp_path / "port"), "--set", "TRAIN.JOINT_FT=false"])
     with pytest.raises(ValueError, match="Ds"):
         orbax_to_torch.main([str(tmp_path / "jax"), str(tmp_path / "port"), "--set", "TREE.BRANCH_NUM=1"])
+
+
+def test_converted_inception_run_is_what_eval_scores_with(tmp_path, capsys):
+    """A ``scripts/finetune_inception.py`` state (InceptionV3 params, BN
+    statistics, optax Adam's state, built here from numpy zeros: optax's own
+    ``init`` would compile a JAX op per leaf shape) → a port checkpoint
+    holding every tensor bitwise, which ``eval --finetuned_ckpt`` loads
+    (``cli.inception_weights``, the command's reader)."""
+    _, jax_cfg = cfgs()
+    sd = moved(init_inception_state(3, seed=5, device="cpu").model, torch.Generator().manual_seed(6))
+    trees = bridge.inception_trees(sd)
+    zeros = lambda: jax.tree.map(np.zeros_like, trees["params"])  # noqa: E731
+    opt = (optax.ScaleByAdamState(count=np.zeros((), np.int32), mu=zeros(), nu=zeros()), optax.EmptyState())
+    state = JaxInceptionTrainState(step=np.int32(STEP), params=trees["params"], batch_stats=trees["batch_stats"],
+                                   opt=opt)
+    save_jax_run(str(tmp_path / "jax_inc"), state, STEP, jax_cfg)
+    orbax_to_torch.main([str(tmp_path / "jax_inc"), str(tmp_path / "port_inc")])
+    assert "inception checkpoint of step 7" in capsys.readouterr().out
+    ckpt = str(tmp_path / "port_inc" / "ckpt")
+    raw, step = CheckpointManager(ckpt).restore_latest_raw()
+    assert step == STEP == raw["step"] and raw["opt"]["state"] == {}
+    assert_same(raw["model"], sd)
+    got, n = cli.inception_weights(finetuned_ckpt=ckpt)
+    assert n == 3
+    assert_same(got, sd)

@@ -12,14 +12,18 @@ restored as a raw tree, without a template, and recognized by its fields:
   the port's ``EncoderTrainState`` layout;
 - a GAN state (``g_params``/``g_stats``/``ema_g``/``d_params``/
   ``d_stats``, with the finetuned encoder under ``enc`` in joint mode) →
-  the port's ``GanTrainState`` layout.
+  the port's ``GanTrainState`` layout;
+- an Inception finetune state of ``scripts/finetune_inception.py``
+  (``params`` holding ``Conv2d_1a_3x3``..``fc``, ``batch_stats``,
+  ``step``) → the port's ``InceptionTrainState`` layout.
 
 The weights go through ``s2i_tpu_torch.bridge`` (``encoder_state_dict``,
-``gnet_state_dict``, ``dnet_state_dict``) into modules built from the run's
-config (``--cfg``, default ``JAX_RUN/config.yml``), and the port checkpoint
+``gnet_state_dict``, ``dnet_state_dict``, ``inception_state_dict``) into
+modules built from the run's config (``--cfg``, default ``JAX_RUN/config.yml``), and the port checkpoint
 lands in ``PORT_RUN/ckpt/<step>.pt`` beside a ``config.yml``. Then:
 
     SpeechToImage.from_checkpoints(cfg, "<encoder PORT_RUN>/ckpt", "<gan PORT_RUN>/ckpt")
+    python -m s2i_tpu_torch eval --gen_dir ... --finetuned_ckpt <inception PORT_RUN>/ckpt
     python -m s2i_tpu_torch train --cfg ... --set TRAIN.NET_G=<gan PORT_RUN>/ckpt
     python -m s2i_tpu_torch train --cfg cfg/birds_joint_ft.yml --set TRAIN.NET_E=<encoder PORT_RUN>/ckpt
 
@@ -44,6 +48,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from s2i_tpu.utils import CheckpointManager as OrbaxCheckpoints  # noqa: E402
 from s2i_tpu_torch import bridge, config  # noqa: E402
+from s2i_tpu_torch.eval.finetune import init_inception_state  # noqa: E402
 from s2i_tpu_torch.train import gan  # noqa: E402
 from s2i_tpu_torch.train.encoder import init_encoder_state  # noqa: E402
 from s2i_tpu_torch.utils import CheckpointManager  # noqa: E402
@@ -116,6 +121,17 @@ def convert_gan(raw: dict, cfg) -> dict:
     return state.state_dict()
 
 
+def convert_inception(raw: dict) -> dict:
+    """A restored JAX ``InceptionTrainState`` → the port's Inception train
+    state dict (``{"step", "model", "opt"}``; ``opt`` fresh), the classes
+    from its ``fc`` kernel."""
+    sd = bridge.inception_state_dict({"params": raw["params"], "batch_stats": raw["batch_stats"]})
+    state = init_inception_state(int(sd["fc.weight"].shape[0]), device="cpu")
+    _load(state.model, sd, "the Inception checkpoint")
+    state.step = int(raw["step"])
+    return state.state_dict()
+
+
 def _ckpt_dir(jax_run: str) -> str:
     sub = os.path.join(jax_run, "ckpt")
     return sub if os.path.isdir(sub) else jax_run
@@ -130,10 +146,12 @@ def convert(jax_run: str, port_run: str, cfg) -> tuple[str, int]:
     raw, step = _host(restored[0]), restored[1]
     if "g_params" in raw:
         kind, sd = "gan", convert_gan(raw, cfg)
+    elif "Conv2d_1a_3x3" in raw.get("params", {}):
+        kind, sd = "inception", convert_inception(raw)
     elif "params" in raw and "batch_stats" in raw:
         kind, sd = "encoder", convert_encoder(raw, cfg)
     else:
-        raise ValueError(f"{jax_run}: neither an encoder nor a GAN train state (fields {sorted(raw)})")
+        raise ValueError(f"{jax_run}: not an encoder, GAN or Inception train state (fields {sorted(raw)})")
     os.makedirs(port_run, exist_ok=True)
     config.dump_cfg(cfg, os.path.join(port_run, "config.yml"))
     CheckpointManager(os.path.join(port_run, "ckpt")).save(step, sd, force=True)
