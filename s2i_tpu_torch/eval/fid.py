@@ -9,8 +9,9 @@ of the product, a complex Schur decomposition and a triangular square root
 of a 2048² matrix: 20-27 s a call on a Xeon host core (SciPy 1.17),
 whatever the number of images. Here it is the sum of the singular values of
 ``sigma2^½ sigma1^½`` (those are the square roots of the eigenvalues of
-``sigma1^½ sigma2 sigma1^½``, which are the product's), each square root
-from a symmetric eigendecomposition: ~3 s on the same core. It is also
+``sigma1^½ sigma2 sigma1^½``, which are the product's), from a symmetric
+eigendecomposition of each covariance and an SVD no larger than their
+ranks: 3.6-7.2 s on one core of the same host, by rank. It is also
 more accurate where the protocol lives. With fewer images than the 2048
 features the covariances are singular, and a square root of the product
 turns every rounding-level eigenvalue into a sqrt(eps)-sized term: on the
@@ -33,19 +34,24 @@ def gaussian_stats(features: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return mu, np.atleast_2d(sigma)
 
 
-def _sqrt_psd(sigma: np.ndarray) -> np.ndarray:
-    """The symmetric square root of a covariance, its eigenvalues below the
-    rounding level of the largest (``numpy.linalg.matrix_rank``'s
-    tolerance) taken as 0."""
+def _root_factor(sigma: np.ndarray) -> np.ndarray:
+    """F [d, r] with F Fᵀ = sigma: its eigenvectors scaled by the square
+    roots of their eigenvalues, those below the rounding level of the
+    largest (``numpy.linalg.matrix_rank``'s tolerance) dropped."""
     w, v = np.linalg.eigh(sigma)
-    tol = max(float(w.max()), 0.0) * len(w) * np.finfo(w.dtype).eps
-    return (v * np.sqrt(np.where(w > tol, w, 0.0))) @ v.T
+    keep = w > max(float(w.max()), 0.0) * len(w) * np.finfo(w.dtype).eps
+    return v[:, keep] * np.sqrt(w[keep])
 
 
 def trace_sqrt_product(sigma1: np.ndarray, sigma2: np.ndarray) -> float:
     """tr((sigma1 sigma2)^½) of two covariances: the sum of the singular
-    values of ``sigma2^½ sigma1^½``."""
-    return float(np.linalg.svd(_sqrt_psd(sigma2) @ _sqrt_psd(sigma1), compute_uv=False).sum())
+    values of ``sigma2^½ sigma1^½``, which are those of the [r2, r1]
+    product ``F2ᵀ F1`` of their root factors (``sigma^½ = V S Vᵀ`` and the
+    outer ``V``s have orthonormal columns)."""
+    f1, f2 = _root_factor(sigma1), _root_factor(sigma2)
+    if not (f1.size and f2.size):
+        return 0.0
+    return float(np.linalg.svd(f2.T @ f1, compute_uv=False).sum())
 
 
 def fid_from_stats(mu1: np.ndarray, sigma1: np.ndarray, mu2: np.ndarray, sigma2: np.ndarray) -> float:

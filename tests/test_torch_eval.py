@@ -22,6 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 from PIL import Image
 
@@ -50,9 +51,12 @@ TOL_FID = 1e-7
 
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
+    """One torch thread and one BLAS thread (FID's 2048² decompositions):
+    the test run's parallel workers share the cores."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpoolctl.threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 
