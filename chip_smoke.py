@@ -1784,7 +1784,7 @@ def phase_eval(card: str, data: dict[str, str]) -> dict[str, int]:
         f"pipelined {EVAL_IMAGES / pipe_s:.1f} images/s, serial {EVAL_IMAGES / serial_s:.1f} images/s; "
         f"device ms per batch of {batch}: InceptionV3 forward {fwd_ms:.3f} (bound {bound_ms:.3f} by {bound_by}: "
         f"{flops / 1e9:.1f} GFLOP at the fp32 peak, TF32 off; {nbytes / 1e6:.1f} MB), quantize + resize "
-        f"256 -> 299 {pre_ms:.3f}; peak memory {peak:.0f} MiB; FID host ms (two eigendecompositions) "
+        f"256 -> 299 {pre_ms:.3f}; peak memory {peak:.0f} MiB; FID host ms (two eigendecompositions and an SVD) "
         f"{fid_ms:.1f}, scipy.linalg.sqrtm of the 2048^2 product {sqrtm_ms:.1f}")
     del ex, xb, pre
 
