@@ -1637,8 +1637,8 @@ def inception_with_random_bn(num_classes: int, images: np.ndarray) -> dict[str, 
     statistics of 0 and 1 eval-mode BN is nearly an identity, which would
     hide a wrong eps or a swapped mean and variance; at random statistics
     the BN offsets swamp the signal within a few layers and every image
-    gets the same features (the first chip run read IS 1.0000 and FID(X, Y)
-    0.0000 so). Statistics of the images themselves keep both away."""
+    gets the same features (IS and FID(X, Y) at their trivial 1 and 0).
+    Statistics of the images themselves keep both away."""
     model = InceptionV3(num_classes)
     init_inception(model, torch.Generator().manual_seed(SEED))
     gen = torch.Generator().manual_seed(SEED + 1)

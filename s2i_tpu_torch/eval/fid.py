@@ -6,18 +6,17 @@ covariance product's square root on the host.
 
 The JAX package takes ``tr((sigma1 sigma2)^½)`` from ``scipy.linalg.sqrtm``
 of the product, a complex Schur decomposition and a triangular square root
-of a 2048² matrix: 20-27 s a call on a Xeon host core (SciPy 1.17),
-whatever the number of images. Here it is the sum of the singular values of
+of a 2048² matrix. Here it is the sum of the singular values of
 ``sigma2^½ sigma1^½`` (those are the square roots of the eigenvalues of
 ``sigma1^½ sigma2 sigma1^½``, which are the product's), from a symmetric
 eigendecomposition of each covariance and an SVD no larger than their
-ranks: 3.6-7.2 s on one core of the same host, by rank. It is also
+ranks: over ten times faster (chip_smoke.py's eval phase times both) and
 more accurate where the protocol lives. With fewer images than the 2048
 features the covariances are singular, and a square root of the product
-turns every rounding-level eigenvalue into a sqrt(eps)-sized term: on the
-card's features of 1024 G images, FID(X, X) read 0.368 from the product's
-eigenvalues, where the singular values hold it at rounding level. Held
-against the JAX package's ``fid_from_stats`` in ``tests/test_torch_eval.py``.
+turns every rounding-level eigenvalue into a sqrt(eps)-sized term, enough
+to move FID(X, X) of 1024 images far past 1e-3; the singular values keep
+it at rounding level. Held against the JAX package's ``fid_from_stats`` in
+``tests/test_torch_eval.py``.
 """
 
 from __future__ import annotations

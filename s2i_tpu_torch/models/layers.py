@@ -41,9 +41,9 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
     """Flax's default kernel init: truncated normal (±2σ) of variance
     1/fan_in, σ corrected for the truncation, drawn as
     ``jax.random.truncated_normal`` draws it: a uniform between erf(±√2)
-    through erfinv (one pass; torch's ``trunc_normal_`` resamples the
-    tails of a normal draw, about ten times slower for a 24M-parameter
-    InceptionV3)."""
+    through erfinv, one pass (torch's ``trunc_normal_`` resamples the
+    tails of a normal draw until none is left, a slow loop over a
+    24M-parameter InceptionV3)."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     bound = math.erf(math.sqrt(2.0))  # erf(2 / √2)
     w.uniform_(-bound, bound, generator=gen).erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(std)

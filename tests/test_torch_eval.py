@@ -7,8 +7,8 @@ variance randomized (at statistics of 0 and 1 eval-mode BN is nearly an
 identity, which would hide a wrong ``eps`` or a swapped mean and variance),
 carried to Flax by ``bridge.inception_trees``: the JAX ``InceptionV3.init``
 is never run. Three small JAX programs are compiled (the whole network's
-eval forward at 75 px, 3.9 s; each train-mode block, ~0.4 s, where the
-InceptionA block's op-by-op eager run took 3.5 s in compiles of its ops);
+eval forward at 75 px, 2-4 s; each train-mode block, ~0.4 s, where an
+op-by-op eager run of a block compiles each of its ops and takes longer);
 the resize and the metrics run eagerly. Tolerances, each relative to the reference's largest magnitude
 unless said otherwise: the whole network 1e-5 (float32 sums over ~95
 layers in another order), the blocks 1e-5, the resize 1e-6 absolute, the

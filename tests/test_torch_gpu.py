@@ -723,8 +723,8 @@ def _grad_distance(a: torch.nn.Module, b: torch.nn.Module) -> float:
 
 def test_inception_finetune_step_on_the_card_matches_cpu(card):
     """One train-mode step from the same seeded init at 299 px, batch 8:
-    the loss within 1e-3 relative (the first chip run read 1.07e-4 at 75
-    px), the BN running statistics within 1e-4 absolute, and the gradients
+    the loss within 1e-3 relative (train-mode BN over 8 examples through
+    ~95 layers), the BN running statistics within 1e-4 absolute, and the gradients
     as a whole no further from the CPU's than twice the distance between
     two CPU float32 steps that differ only in their convolution code
     (oneDNN on and off). The randomly initialized network's gradients are
