@@ -61,6 +61,19 @@ Phases, each of which passes or raises (nothing is caught):
                with its device parts and peak memory beside those phases'
                float32 numbers, K1/K2/K3 launches, the checkpoint's bytes
                with bfloat16 moments;
+  9b. export - the deployment path (s2i_tpu_torch/export.py): the bf16
+               phase's serve pipeline (cfg/birds_3stages.yml, full width,
+               the serve phase's seeded weights) saved with torch.export at
+               batch sizes 1 and 8; a fresh process with the model modules
+               blocked loads it and serves the 8 tone WAVs (K1 and K2
+               launches per program call, printed), and in this process the
+               artifact holds against the live pipeline with the same seed
+               (B=8, one program call; B=3, padded; B=12, two chunks, the
+               second at the derived seed): uint8 images no more than one
+               level apart on at most 0.1% of the pixels; POSTs through
+               make_server(loaded); export and load seconds, artifact
+               bytes, first-call ms, batch latency at B=8 and device memory
+               after load and at peak, artifact beside the live pipeline;
  10. loop    - the trainer loop (train.loop.GanTrainer) on the joint cfg,
                in bfloat16 with bfloat16 Adam moments, at
                full width, batch 24, with cuDNN's deterministic algorithms:
@@ -114,6 +127,7 @@ names it, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import copy
+import gc
 import io
 import itertools
 import json
@@ -121,6 +135,7 @@ import math
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -132,6 +147,7 @@ import torch
 from PIL import Image
 
 from s2i_tpu_torch import cli, config, entrypoints, native
+from s2i_tpu_torch import export as s2i_export
 from s2i_tpu_torch.audio import filters
 from s2i_tpu_torch.audio.frontend import (
     FrontendParams,
@@ -197,6 +213,7 @@ FINETUNE_BATCH = 32  # finetune-inception's --batch default
 FINETUNE_STEPS = 6  # timed finetune steps, after 2 of warm-up
 AB_SHAPE = (8, 64000)  # scripts/perf_cert.py::cert_mel's wav batch
 FLUSH_BYTES = 256 << 20  # written between launches of a cold timing: five times the H100's 50 MB L2
+EXPORT_BATCHES = (1, BATCH)  # the artifact's batch sizes, scripts/export.py's default
 
 # kernel name → (wrapper whose .launches counts it, source, the TPU kernel it replaces)
 KERNELS = {
@@ -250,6 +267,10 @@ TOL_GAN_STATS = 1e-4
 # cuDNN's order); the quantized resize absolute (one rounding per tap sum).
 TOL_INCEPTION = 1e-3
 TOL_PREPROCESS = 1e-5
+# The artifact against the live pipeline, same kernels and cuDNN calls on
+# one card: uint8 images at most one level apart (a value within rounding
+# of a .5 edge), on at most this share of the pixels.
+TOL_ARTIFACT_PIXELS = 1e-3
 
 
 # step medians (ms) of the train, gan and joint phases on batches made ahead
@@ -1245,6 +1266,182 @@ def states_equal(a: dict, b: dict) -> bool:
         torch.equal(x, fb[k]) if torch.is_tensor(x) else x == fb[k] for k, x in fa.items())
 
 
+# Run by phase_export in a fresh process: load the artifact with the model
+# code blocked, serve the serve phase's WAVs twice (seed 1), and print one
+# JSON line of what happened.
+LOADED_SERVE = r"""
+import json, sys, time
+for m in ("models", "pipeline", "train", "data"):
+    sys.modules["s2i_tpu_torch." + m] = None
+import numpy as np
+import torch
+from s2i_tpu_torch import export
+from s2i_tpu_torch.ops import gru_kernel, mel_kernel
+
+art, inputs, out = sys.argv[1:4]
+t0 = time.perf_counter()
+loaded = export.load(art)
+torch.cuda.synchronize()
+load_s = time.perf_counter() - t0
+resident = torch.cuda.memory_allocated()
+d = np.load(inputs)
+torch.cuda.reset_peak_memory_stats()
+launches = []
+for _ in range(2):
+    k = mel_kernel.logmel.launches, gru_kernel.gru_scan.launches
+    t0 = time.perf_counter()
+    img = loaded.generate(d["wavs"], d["lens"], seed=1)
+    launches.append([mel_kernel.logmel.launches - k[0], gru_kernel.gru_scan.launches - k[1],
+                     1e3 * (time.perf_counter() - t0)])
+np.save(out, img)
+print(json.dumps({"load_s": load_s, "resident": resident, "peak": torch.cuda.max_memory_allocated(),
+                  "calls": launches, "model_modules": sorted(m for m in sys.modules if sys.modules[m] is not None
+                                                             and m.split(".")[1:2] in (["models"], ["pipeline"],
+                                                                                        ["train"], ["data"]))}))
+"""
+
+
+def pixels_apart(got: np.ndarray, want: np.ndarray, what: str) -> str:
+    """uint8 images against each other under TOL_ARTIFACT_PIXELS: raises
+    past it, else returns how far apart they are."""
+    if got.shape != want.shape or got.dtype != np.uint8 or want.dtype != np.uint8:
+        raise AssertionError(f"[export] {what}: {got.dtype} {got.shape} against {want.dtype} {want.shape}")
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    n = int((diff > 0).sum())
+    if diff.max() > 1 or n > TOL_ARTIFACT_PIXELS * diff.size:
+        raise AssertionError(f"[export] {what}: {n} of {diff.size} values differ, by up to {diff.max()} "
+                             f"(gate: 1 level on {TOL_ARTIFACT_PIXELS:.1%})")
+    return f"{what} {n} of {diff.size} values differ (max {diff.max()})"
+
+
+def phase_export(card: str) -> dict[str, int]:
+    """The deployment path: the bf16 phase's serve pipeline (cfg/birds_3stages.yml
+    at full width in its bfloat16, the serve phase's weights) exported at
+    EXPORT_BATCHES, loaded in a fresh process with the model code blocked
+    and in this one, held against the live pipeline, served over HTTP and
+    timed beside it. The artifact goes to a temporary directory under
+    output/, deleted at the end."""
+    ref = F32["serve_ref"]
+    cfg = config.cfg_from_file("cfg/birds_3stages.yml")
+    layers = int(cfg.ENCODER.RNN_LAYERS)
+    wavs, lens = ref["wavs"], ref["lens"]
+    reset_counts()
+
+    def allocated() -> int:
+        """Device bytes held, after the earlier phases' garbage is freed."""
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    base = allocated()
+    pipe = SpeechToImage(cfg, ref["enc_sd"], ref["g_sd"], device="cuda")
+    live_resident = allocated() - base
+    os.makedirs("output", exist_ok=True)
+    out = tempfile.mkdtemp(prefix="chip_smoke_export_", dir="output")
+    try:
+        art = os.path.join(out, "artifact")
+        t0 = time.perf_counter()
+        meta = s2i_export.export_pipeline(pipe, art, batch_sizes=EXPORT_BATCHES)
+        export_s = time.perf_counter() - t0
+        nbytes = {f: os.path.getsize(os.path.join(art, f)) for f in sorted(os.listdir(art))}
+        if read_counts() != dict.fromkeys(KERNELS, 0):
+            raise AssertionError(f"[export] tracing launched a kernel: {read_counts()}")
+        log(f"[export] {card}: {meta['output_dtype']} program of stage {meta['stage']} ({meta['image_size']} px), "
+            f"batch sizes {meta['batch_sizes']}, DTYPE.COMPUTE {cfg.DTYPE.COMPUTE}: exported in {export_s:.2f} s; "
+            f"artifact {sum(nbytes.values())} bytes {nbytes}")
+
+        # a fresh process with models, pipeline, train and data blocked
+        np.savez(os.path.join(out, "inputs.npz"), wavs=wavs, lens=lens)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", LOADED_SERVE, art, os.path.join(out, "inputs.npz"),
+                               os.path.join(out, "images.npy")], capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        if proc.returncode != 0:
+            raise AssertionError(f"[export] the loading process failed:\n{proc.stderr[-4000:]}")
+        sub = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(f"[export] fresh process ({time.perf_counter() - t0:.1f} s with its start), model modules "
+            f"imported {sub['model_modules']}: load {sub['load_s']:.2f} s, device memory after load "
+            f"{sub['resident'] / 2**20:.0f} MiB, peak {sub['peak'] / 2**20:.0f} MiB; per program call of "
+            f"{BATCH} WAVs K1/K2 launches and host ms {sub['calls']}")
+        if sub["model_modules"] or any(c[:2] != [1, layers] for c in sub["calls"]):
+            raise AssertionError(f"[export] expected no model module and 1 K1 + {layers} K2 launches a call: {sub}")
+
+        # this process: the artifact against the live pipeline, seed for seed
+        base = allocated()
+        t0 = time.perf_counter()
+        loaded = s2i_export.load(art)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        art_resident = allocated() - base
+        before = read_counts()
+        t0 = time.perf_counter()
+        got = loaded.generate(wavs, lens, seed=1)
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        one = {k: v - before[k] for k, v in read_counts().items()}
+        if (one["mel_fused"], one["gru_fwd"]) != (1, layers):
+            raise AssertionError(f"[export] one program call launched {one}")
+        want = pipe.generate(wavs, lens, seed=1, output_dtype="uint8")
+        lines = [pixels_apart(got, want, f"B={BATCH} (one call)"),
+                 pixels_apart(np.load(os.path.join(out, "images.npy")), want, f"B={BATCH} fresh process")]
+        n = loaded.max_samples
+
+        def pad(x: np.ndarray, rows: int, fill) -> np.ndarray:
+            return np.concatenate([x, np.full((rows - len(x), *x.shape[1:]), fill, x.dtype)])
+
+        lines.append(pixels_apart(
+            loaded.generate(wavs[:3], lens[:3], seed=2),
+            pipe.generate(pad(wavs[:3], BATCH, 0), pad(lens[:3], BATCH, n), seed=2, output_dtype="uint8")[:3],
+            "B=3 (padded to 8)"))
+        w12, l12 = np.concatenate([wavs, wavs[:4]]), np.concatenate([lens, lens[:4]])
+        got12 = loaded.generate(w12, l12, seed=5)
+        want12 = np.concatenate([
+            pipe.generate(w12[:BATCH], l12[:BATCH], seed=5, output_dtype="uint8"),
+            pipe.generate(pad(w12[BATCH:], BATCH, 0), pad(l12[BATCH:], BATCH, n), seed=s2i_export.chunk_seed(5, 1),
+                          output_dtype="uint8")[:4]])
+        lines.append(pixels_apart(got12, want12, "B=12 (chunks of 8 and 4)"))
+        log("[export] artifact vs live, same seed: " + "; ".join(lines))
+
+        # HTTP through make_server(loaded): warmup batch + the POSTed WAVs
+        bodies = []
+        for w, m in zip(wavs, lens):
+            buf = io.BytesIO()
+            write_wav(buf, w[:m], loaded.p.sample_rate)
+            bodies.append(buf.getvalue())
+        srv = make_server(loaded, "127.0.0.1", 0, batch_size=BATCH, device="cuda")
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        try:
+            answers = post_wavs(f"http://127.0.0.1:{srv.server_address[1]}", bodies)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        for status, png in answers:
+            size = (int.from_bytes(png[16:20], "big"), int.from_bytes(png[20:24], "big"))
+            if status != 200 or png[:8] != b"\x89PNG\r\n\x1a\n" or size != (256, 256):
+                raise AssertionError(f"[export] bad answer: status {status}, PNG {png[:8]!r} {size}")
+
+        # batch latency at B=8 and peak memory, live and artifact in turns (live, artifact, artifact, live)
+        runs = {"live": lambda: pipe.generate(wavs, lens, seed=1, output_dtype="uint8"),
+                "artifact": lambda: loaded.generate(wavs, lens, seed=1)}
+        times, peaks = {k: [] for k in runs}, {k: 0.0 for k in runs}
+        for k in ("live", "artifact", "artifact", "live"):
+            held = allocated() / 2**20
+            ts, peak, _ = timed_steps(runs[k], LATENCY_RUNS // 2)
+            times[k] += ts
+            peaks[k] = max(peaks[k], peak - held)
+        f = lambda ts: f"median {np.median(ts):.2f} min {min(ts):.2f} max {max(ts):.2f} (n={len(ts)})"  # noqa: E731
+        log(f"[export] {card}: {len(answers)} POSTs through make_server(loaded) -> 200 + 256x256 PNG; load "
+            f"{load_s:.2f} s, first call {first_ms:.1f} ms; batch {BATCH} wav->uint8 latency ms artifact "
+            f"{f(times['artifact'])} | live {f(times['live'])}; device memory after load artifact "
+            f"{art_resident / 2**20:.0f} | live {live_resident / 2**20:.0f} MiB, peak above the weights artifact "
+            f"{peaks['artifact']:.0f} | live {peaks['live']:.0f} MiB")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    launches = read_counts()
+    if not (launches["mel_fused"] and launches["gru_fwd"]):
+        raise AssertionError(f"[export] a kernel of the path never launched: {launches}")
+    return launches
+
+
 def phase_loop(card: str) -> dict[str, int]:
     """The trainer loop of cfg/birds_joint_ft.yml at full width and batch
     GAN_BATCH, in a temporary run directory deleted at the end: resume,
@@ -2049,7 +2246,7 @@ def main() -> None:
     card = f"{name} ({smi})"
     paths = {"serve": phase_serve(card), "train": phase_train(card), "mel_ab": phase_mel_ab(card),
              "gan": phase_gan(card, "cfg/birds_3stages.yml"), "joint": phase_gan(card, "cfg/birds_joint_ft.yml"),
-             "bf16": phase_bf16(card), "loop": phase_loop(card)}
+             "bf16": phase_bf16(card), "export": phase_export(card), "loop": phase_loop(card)}
     os.makedirs("output", exist_ok=True)
     root = tempfile.mkdtemp(prefix="chip_smoke_data_", dir="output")
     try:

@@ -32,9 +32,21 @@ writes the speech embeddings the GAN trains on. ``python -m s2i_tpu_torch``
 finetune-inception from the command line.
 
 ``ops.mel_kernel.logmel_framed`` (csrc/mel_framed.cu) computes the log-mel
-from pre-framed rows, for the frontend A/B only.
+from pre-framed rows, for the frontend A/B only. The kernels' wrappers call
+``torch.library`` custom ops (``s2i::logmel``, ``s2i::logmel_frames``,
+``s2i::gru_scan`` with its backward ``s2i::gru_scan_bwd``), registered when
+``s2i_tpu_torch.ops`` is imported.
+
+    export.export_pipeline(pipe, dir) → pipeline.ServeProgram saved with
+        torch.export (weights inside, the kernels as op nodes) + meta.json
+    export.load(dir) → LoadedPipeline: SpeechToImage's serving surface,
+        no model code imported; serving.make_server takes it
+
+``python -m s2i_tpu_torch`` (entrypoints.py) also runs export / serve
+[--artifact] / speech-to-image.
 
 Entry points (``pipeline.SpeechToImage`` and its ``from_checkpoints``,
+``export.export_pipeline``, ``export.load``,
 ``serving.make_server``, ``audio.frontend.extract_features``,
 ``train.encoder.init_encoder_state``, ``train.gan.init_state``,
 ``train.loop.GanTrainer``, ``cli.run_encoder_pretrain``,

@@ -1,4 +1,5 @@
-"""Where the port's work runs, and in which floating-point types."""
+"""Where the port's work runs, in which floating-point types, and the
+seeded noise of a serving call."""
 
 from __future__ import annotations
 
@@ -56,3 +57,12 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def draw_z(seed: int, batch: int, z_dim: int, device: torch.device) -> torch.Tensor:
+    """The noise of a serving call seeded with ``seed``: [batch, z_dim]
+    standard normal from a ``torch.Generator`` on ``device``. The live
+    pipeline and a loaded artifact both draw it here, so that the two agree
+    for one seed."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((batch, z_dim), generator=gen, device=device)

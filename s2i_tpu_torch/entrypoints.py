@@ -1,9 +1,11 @@
 """The port's entry points: console scripts (``pyproject.toml``:
 ``s2i-torch-train``, ``s2i-torch-sample``, ``s2i-torch-pretrain-encoder``,
-``s2i-torch-finetune-inception``, ``s2i-torch-eval``) and ``python -m
+``s2i-torch-finetune-inception``, ``s2i-torch-eval``, ``s2i-torch-export``,
+``s2i-torch-serve``, ``s2i-torch-speech-to-image``) and ``python -m
 s2i_tpu_torch``, the counterparts of ``main.py``, ``s2i_tpu/entrypoints.py``,
-``scripts/pretrain_encoder.py``, ``scripts/finetune_inception.py`` and
-``scripts/eval.py``:
+``scripts/pretrain_encoder.py``, ``scripts/finetune_inception.py``,
+``scripts/eval.py``, ``scripts/export.py``, ``scripts/serve.py`` and
+``scripts/speech_to_image.py``:
 
     python -m s2i_tpu_torch --cfg cfg/birds_3stages.yml        # TRAIN.FLAG: train, else sample
     python -m s2i_tpu_torch train --cfg cfg/birds_joint_ft.yml --set TRAIN.NET_E=<run>/ckpt
@@ -13,6 +15,9 @@ s2i_tpu_torch``, the counterparts of ``main.py``, ``s2i_tpu/entrypoints.py``,
     python -m s2i_tpu_torch finetune-inception --cfg cfg/birds_3stages.yml [--warm_start W.pth] --epochs 20
     python -m s2i_tpu_torch eval --gen_dir <samples> --real_dir <images> [--finetuned_ckpt <run>/ckpt] --json
     python -m s2i_tpu_torch eval --retrieval <speech-embeddings.pickle> <char-CNN-RNN-embeddings.pickle>
+    python -m s2i_tpu_torch export --cfg cfg/birds_joint_ft.yml --gan_ckpt <run>/ckpt --out <dir> --batches 1,8
+    python -m s2i_tpu_torch serve --artifact <dir> --port 8500       # or --cfg ... --gan_ckpt <run>/ckpt
+    python -m s2i_tpu_torch speech-to-image --cfg ... --gan_ckpt <run>/ckpt --wav a.wav b.wav --out_dir <dir>
 
 Every command but ``eval`` takes ``--cfg --data_dir --output_dir
 --manualSeed --gpu --set KEY=VAL ...``; every command runs on the card
@@ -25,11 +30,16 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 from s2i_tpu_torch import cli
+from s2i_tpu_torch.export import export_pipeline, load, read_meta
+from s2i_tpu_torch.pipeline import SpeechToImage
+from s2i_tpu_torch.serving import make_server
 
-COMMANDS = ("train", "sample", "pretrain-encoder", "finetune-inception", "eval")
+COMMANDS = ("train", "sample", "pretrain-encoder", "finetune-inception", "eval", "export", "serve",
+            "speech-to-image")
 
 
 def train_gan(argv: list[str] | None = None) -> dict:
@@ -123,13 +133,94 @@ def evaluate(argv: list[str] | None = None) -> dict:
     return rec
 
 
+def _checkpoint_flags(p: argparse.ArgumentParser, gan_required: bool = True) -> None:
+    p.add_argument("--encoder_ckpt", default="",
+                   help="the encoder run's ckpt dir; not read when TRAIN.JOINT_FT (the GAN checkpoint holds it)")
+    p.add_argument("--gan_ckpt", required=gan_required, default="", help="the GAN run's ckpt dir")
+
+
+def export(argv: list[str] | None = None) -> dict:
+    """A trained run's serve program as an AOT artifact (``export.py``;
+    ``scripts/export.py``); prints and returns its meta."""
+    p = cli.base_parser("Export the speech-to-image pipeline to an AOT artifact (torch.export)")
+    _checkpoint_flags(p)
+    p.add_argument("--out", required=True, help="artifact directory")
+    p.add_argument("--batches", default="1,8", help="the batch sizes requests are padded or split to")
+    p.add_argument("--stage", type=int, default=-1, help="G's stage (-1: the highest resolution)")
+    p.add_argument("--float", action="store_true", help="emit float32 [-1, 1] images instead of uint8")
+    p.add_argument("--no_ema", action="store_true", help="G's trained weights instead of their EMA")
+    args = p.parse_args(argv)
+    device = cli.resolve_args_device(args)
+    pipe = SpeechToImage.from_checkpoints(cli.resolve_cfg(args), args.encoder_ckpt or None, args.gan_ckpt,
+                                          use_ema=not args.no_ema, device=device)
+    meta = export_pipeline(pipe, args.out, tuple(int(b) for b in args.batches.split(",")), args.stage,
+                           quantize=not args.float)
+    print(json.dumps(meta))
+    return meta
+
+
+def build_server(argv: list[str] | None = None):
+    """The ``serve`` command's HTTP server over checkpoints or an artifact,
+    warmed up unless ``--no_warmup``, not yet serving."""
+    p = cli.base_parser("Serve the speech-to-image pipeline over HTTP (POST /generate, GET /healthz)")
+    _checkpoint_flags(p, gan_required=False)
+    p.add_argument("--artifact", default="", help="serve an artifact of the export command instead of checkpoints")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8500)
+    p.add_argument("--batch", type=int, default=8, help="the device batch requests are collated into")
+    p.add_argument("--no_warmup", action="store_true", help="skip the full batch run before listening")
+    args = p.parse_args(argv)
+    device = cli.resolve_args_device(args)
+    if args.artifact:
+        if read_meta(args.artifact)["output_dtype"] != "uint8":
+            p.error("serving needs a uint8 artifact (PNG responses); re-export without --float")
+        pipe = load(args.artifact, device)
+    else:
+        if not args.gan_ckpt:
+            p.error("--gan_ckpt (or --artifact) is required")
+        pipe = SpeechToImage.from_checkpoints(cli.resolve_cfg(args), args.encoder_ckpt or None, args.gan_ckpt,
+                                              device=device)
+    return make_server(pipe, args.host, args.port, args.batch, warmup=not args.no_warmup, device=device)
+
+
+def serve(argv: list[str] | None = None) -> None:
+    """``scripts/serve.py``: :func:`build_server`, then serve until interrupted."""
+    srv = build_server(argv)
+    host, port = srv.server_address[:2]
+    print(f"serving on http://{host}:{port}  (POST /generate, GET /healthz)", flush=True)
+    try:
+        srv.serve_forever()
+    finally:
+        srv.server_close()
+
+
+def speech_to_image(argv: list[str] | None = None) -> list[str]:
+    """WAV files → PNG files, one device pass (``scripts/speech_to_image.py``);
+    prints and returns the PNGs' paths."""
+    p = cli.base_parser("Speech to image: wav files -> PNG images")
+    _checkpoint_flags(p)
+    p.add_argument("--wav", nargs="+", required=True)
+    p.add_argument("--out_dir", default="generated")
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+    device = cli.resolve_args_device(args)
+    pipe = SpeechToImage.from_checkpoints(cli.resolve_cfg(args), args.encoder_ckpt or None, args.gan_ckpt,
+                                          device=device)
+    os.makedirs(args.out_dir, exist_ok=True)
+    outs = [os.path.join(args.out_dir, os.path.splitext(os.path.basename(w))[0] + ".png") for w in args.wav]
+    pipe.generate_files(args.wav, outs, seed=args.seed)
+    print("\n".join(outs))
+    return outs
+
+
 def main(argv: list[str] | None = None):
-    """``python -m s2i_tpu_torch [train|sample|pretrain-encoder|finetune-inception|eval] ...``;
-    without a command it trains or samples as ``TRAIN.FLAG`` says."""
+    """``python -m s2i_tpu_torch [train|sample|pretrain-encoder|finetune-inception|eval|export|serve|
+    speech-to-image] ...``; without a command it trains or samples as ``TRAIN.FLAG`` says."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] in COMMANDS:
         run = {"train": train_gan, "sample": sample, "pretrain-encoder": pretrain_encoder,
-               "finetune-inception": finetune_inception, "eval": evaluate}[argv[0]]
+               "finetune-inception": finetune_inception, "eval": evaluate, "export": export, "serve": serve,
+               "speech-to-image": speech_to_image}[argv[0]]
         return run(argv[1:])
     args = cli.base_parser(__doc__).parse_args(argv)
     cfg = cli.resolve_cfg(args)

@@ -99,7 +99,7 @@ class SpeechEncoder(nn.Module):
     running statistics; ``train()`` with the batch's, updating the running
     ones as Flax's ``apply(..., train=True, mutable=["batch_stats"])``
     does. Gradients reach every parameter, the recurrence's through
-    ``GRUScan``."""
+    the op ``s2i::gru_scan``'s registered backward."""
 
     def __init__(
         self,

@@ -17,12 +17,16 @@ Direction 1 runs backwards in time over the unflipped arrays: its result
 is direction 0's scan of the flipped sequence and mask, flipped back, so
 the leading masked steps of a reversed padded row keep h = h0.
 
-It is :class:`GRUScan`: the forward saves only its inputs and ``ys`` and the
-backward recomputes the gates, as the JAX VJP does. A CUDA tensor goes
-through ``csrc/gru_fwd.cu`` forward and ``csrc/gru_bwd.cu`` backward, one
-launch each for all directions; a CPU tensor through :func:`gru_scan_plain`
-and :func:`gru_scan_bwd_plain`, by the same autograd wiring. Nothing falls
-back from one to the other.
+It is the ``torch.library`` custom op ``s2i::gru_scan``, whose registered
+backward is the op ``s2i::gru_scan_bwd``: the forward saves only its inputs
+and ``ys`` and the backward recomputes the gates, as the JAX VJP does. A
+CUDA tensor goes through ``csrc/gru_fwd.cu`` forward and ``csrc/gru_bwd.cu``
+backward, one launch each for all directions; a CPU tensor through
+:func:`gru_scan_plain` and :func:`gru_scan_bwd_plain`. The dispatcher picks
+the registration by the tensors' device, and nothing falls back from one to
+the other. Serving, training and ``torch.export`` (``s2i_tpu_torch/export.py``)
+go through the same op; its fake registrations give the outputs' shapes for
+tracing and leave the per-batch launch plan (:func:`_plan`) to run time.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import ctypes
 import functools
 
 import torch
+from torch import Tensor
 
 from s2i_tpu_torch.ops import build
 
@@ -189,11 +194,24 @@ def _rows(x, r0, r1, b, axis):
     return x if (r0, r1) == (0, b) else x.narrow(axis, r0, r1 - r0).contiguous()
 
 
+def gru_scan(xw, w_h, b_h, mask, h0):
+    """ys [D, T, B, H] through ``s2i::gru_scan``, differentiable in every
+    input but the mask."""
+    _check_args(xw, w_h, b_h, mask, h0)
+    return torch.ops.s2i.gru_scan(xw, w_h, b_h, mask, h0)
+
+
+@torch.library.custom_op("s2i::gru_scan", mutates_args=(), device_types="cpu")
+def _gru_scan_op(xw: Tensor, w_h: Tensor, b_h: Tensor, mask: Tensor, h0: Tensor) -> Tensor:
+    return gru_scan_plain(xw, w_h, b_h, mask, h0)
+
+
+@_gru_scan_op.register_kernel("cuda")
 def _gru_fwd(xw, w_h, b_h, mask, h0):
-    """ys [D, T, B, H]: K2 for CUDA tensors, :func:`gru_scan_plain` for CPU
-    tensors. Counts its launches on :func:`gru_scan`."""
-    if xw.device.type == "cpu":
-        return gru_scan_plain(xw, w_h, b_h, mask, h0)
+    """ys [D, T, B, H] by K2, one launch per row chunk of the launch plan.
+    Counts its launches on :func:`gru_scan`. A loaded program calls the op
+    without the wrapper, so the checks run here too."""
+    _check_args(xw, w_h, b_h, mask, h0)
     d, t, b, h3 = xw.shape
     h = h3 // 3
     ys = torch.empty((d, t, b, h), device=xw.device)
@@ -222,17 +240,35 @@ def _gru_fwd(xw, w_h, b_h, mask, h0):
 
 
 def gru_scan_bwd(xw, w_h, b_h, mask, h0, ys, dys, events=None):
-    """(dxw, dw_h, db_h, dh0): K3 for CUDA tensors, :func:`gru_scan_bwd_plain`
-    for CPU tensors. ``ys`` is the forward's output and ``dys`` its incoming
-    gradient (made contiguous here: it arrives from slices and transposes).
-    ``events``: None, or four ``torch.cuda.Event(enable_timing=True)`` that
-    the kernel records before its gate SGEMM, after it, after the chain and
-    after dW_h and db_h (a batch too large for one launch records them on
-    its last launch)."""
+    """(dxw, dw_h, db_h, dh0) through ``s2i::gru_scan_bwd``: K3 for CUDA
+    tensors, :func:`gru_scan_bwd_plain` for CPU tensors. ``ys`` is the
+    forward's output and ``dys`` its incoming gradient (made contiguous: it
+    arrives from slices and transposes). ``events``: None, or four
+    ``torch.cuda.Event(enable_timing=True)`` that the kernel records before
+    its gate SGEMM, after it, after the chain and after dW_h and db_h (a
+    batch too large for one launch records them on its last launch); event
+    handles cannot go through an op's schema, so a call with events
+    launches K3 directly."""
+    _check_args(xw, w_h, b_h, mask, h0, ys=ys, dys=dys)
+    if events is not None:
+        if xw.device.type != "cuda":
+            raise ValueError(f"events time K3 on a card; the tensors are on {xw.device}")
+        return _gru_bwd(xw, w_h, b_h, mask, h0, ys, dys, events)
+    return torch.ops.s2i.gru_scan_bwd(xw, w_h, b_h, mask, h0, ys, dys)
+
+
+@torch.library.custom_op("s2i::gru_scan_bwd", mutates_args=(), device_types="cpu")
+def _gru_scan_bwd_op(xw: Tensor, w_h: Tensor, b_h: Tensor, mask: Tensor, h0: Tensor, ys: Tensor,
+                     dys: Tensor) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    return gru_scan_bwd_plain(xw, w_h, b_h, mask, h0, ys, dys.contiguous())
+
+
+@_gru_scan_bwd_op.register_kernel("cuda")
+def _gru_bwd(xw, w_h, b_h, mask, h0, ys, dys, events=None):
+    """K3, one launch per row chunk of the launch plan. Counts its launches
+    on :func:`gru_scan_bwd`."""
     _check_args(xw, w_h, b_h, mask, h0, ys=ys, dys=dys)
     dys = dys.contiguous()
-    if xw.device.type == "cpu":
-        return gru_scan_bwd_plain(xw, w_h, b_h, mask, h0, ys, dys)
     d, t, b, h3 = xw.shape
     h = h3 // 3
     if t == 0:
@@ -276,28 +312,28 @@ def gru_scan_bwd(xw, w_h, b_h, mask, h0, ys, dys, events=None):
     return dxw, dw_h, db_h, dh0
 
 
-class GRUScan(torch.autograd.Function):
-    """The recurrence with its gradient: forward K2 (plain on the CPU), saving
-    the inputs and ``ys``; backward K3 (plain on the CPU). The mask gets no
-    gradient."""
-
-    @staticmethod
-    def forward(ctx, xw, w_h, b_h, mask, h0):
-        ys = _gru_fwd(xw, w_h, b_h, mask, h0)
-        ctx.save_for_backward(xw, w_h, b_h, mask, h0, ys)
-        return ys
-
-    @staticmethod
-    def backward(ctx, dys):
-        dxw, dw_h, db_h, dh0 = gru_scan_bwd(*ctx.saved_tensors, dys)
-        return dxw, dw_h, db_h, None, dh0
+@_gru_scan_op.register_fake
+def _gru_scan_fake(xw, w_h, b_h, mask, h0):
+    d, t, b, h3 = xw.shape
+    return xw.new_empty((d, t, b, h3 // 3))
 
 
-def gru_scan(xw, w_h, b_h, mask, h0):
-    """ys [D, T, B, H] through :class:`GRUScan`."""
-    _check_args(xw, w_h, b_h, mask, h0)
-    return GRUScan.apply(xw, w_h, b_h, mask, h0)
+@_gru_scan_bwd_op.register_fake
+def _gru_scan_bwd_fake(xw, w_h, b_h, mask, h0, ys, dys):
+    return tuple(x.new_empty(x.shape) for x in (xw, w_h, b_h, h0))
 
+
+def _save_for_backward(ctx, inputs, output):
+    ctx.save_for_backward(*inputs, output)
+
+
+def _gru_scan_backward(ctx, dys):
+    """The mask gets no gradient."""
+    dxw, dw_h, db_h, dh0 = torch.ops.s2i.gru_scan_bwd(*ctx.saved_tensors, dys)
+    return dxw, dw_h, db_h, None, dh0
+
+
+_gru_scan_op.register_autograd(_gru_scan_backward, setup_context=_save_for_backward)
 
 gru_scan.launches = 0  # K2 launches since the last reset
 gru_scan_bwd.launches = 0  # K3 launches since the last reset

@@ -20,6 +20,15 @@ FFT and a sparse mel projection, ``csrc/mel_common.cuh``, fed by the packed
 constants of :func:`fft_table`), ``"dft"`` for any other n_fft (the dense
 windowed DFT, fed by :func:`_tables`). Each wrapper's ``branch`` attribute
 names the branch of its last launch; ``launches`` counts its kernel launches.
+
+Both wrappers call ``torch.library`` custom ops, ``s2i::logmel`` and
+``s2i::logmel_frames``, so that ``torch.export`` carries the kernels into a
+saved program (``s2i_tpu_torch/export.py``). An op takes the frame
+geometry as scalars (:func:`geometry`), since a schema cannot take
+``FrontendParams``; its CUDA registration launches the kernel, its CPU
+registration runs the plain version, and its fake registration gives the
+output's shape for tracing. The dispatcher picks the registration by the
+tensor's device.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 
 from s2i_tpu_torch.audio import filters
 from s2i_tpu_torch.ops import build
@@ -38,6 +48,24 @@ from s2i_tpu_torch.ops import build
 def num_frames(n_samples: int, p) -> int:
     """Frames of a signal of ``n_samples`` (already center-padded)."""
     return max(0, 1 + (n_samples - p.win_length) // p.hop_length)
+
+
+def geometry(p) -> tuple:
+    """The fields of ``p`` (``FrontendParams``) that the log-mel kernels
+    read, in the order the custom ops take them."""
+    return (int(p.sample_rate), int(p.win_length), int(p.hop_length), int(p.n_fft), int(p.n_mels),
+            float(p.fmin), float(p.fmax), bool(p.htk_mel), str(p.mel_norm), float(p.log_offset))
+
+
+@functools.lru_cache(maxsize=8)
+def _params(sample_rate, win_length, hop_length, n_fft, n_mels, fmin, fmax, htk_mel, mel_norm, log_offset):
+    """The ``FrontendParams`` of a geometry (:func:`geometry`): its tables
+    depend on these fields alone."""
+    from s2i_tpu_torch.audio.frontend import FrontendParams  # imports this module
+
+    return FrontendParams(sample_rate=sample_rate, win_length=win_length, hop_length=hop_length, n_fft=n_fft,
+                          n_mels=n_mels, fmin=fmin, fmax=fmax, htk_mel=htk_mel, mel_norm=mel_norm,
+                          log_offset=log_offset)
 
 
 def logmel_plain(wav: torch.Tensor, p, n_frames: int) -> torch.Tensor:
@@ -203,9 +231,7 @@ def _check_smem(lib: ctypes.CDLL, p, branch: str, table_bytes: int, win: int) ->
         )
 
 
-def logmel(wav: torch.Tensor, p, n_frames: int) -> torch.Tensor:
-    """[B, n_samples] float32 → [B, n_frames, n_mels]: the kernel for a CUDA
-    tensor, :func:`logmel_plain` for a CPU tensor."""
+def _check_wav(wav: torch.Tensor, p, n_frames: int) -> None:
     if wav.ndim != 2 or wav.dtype != torch.float32:
         raise ValueError(f"expect float32 [batch, n_samples], got {wav.dtype} {tuple(wav.shape)}")
     if not 0 < n_frames <= num_frames(wav.shape[1], p):
@@ -213,10 +239,31 @@ def logmel(wav: torch.Tensor, p, n_frames: int) -> torch.Tensor:
             f"n_frames={n_frames} not in 1..{num_frames(wav.shape[1], p)} "
             f"for {wav.shape[1]} samples"
         )
-    if wav.device.type == "cpu":
-        return logmel_plain(wav, p, n_frames)
-    if wav.device.type != "cuda":
+    if wav.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {wav.device}")
+
+
+def logmel(wav: torch.Tensor, p, n_frames: int) -> torch.Tensor:
+    """[B, n_samples] float32 → [B, n_frames, n_mels] through
+    ``s2i::logmel``: the kernel for a CUDA tensor, :func:`logmel_plain` for
+    a CPU tensor."""
+    _check_wav(wav, p, n_frames)
+    return torch.ops.s2i.logmel(wav, n_frames, *geometry(p))
+
+
+@torch.library.custom_op("s2i::logmel", mutates_args=(), device_types="cpu")
+def _logmel_op(wav: Tensor, n_frames: int, sample_rate: int, win_length: int, hop_length: int, n_fft: int,
+               n_mels: int, fmin: float, fmax: float, htk_mel: bool, mel_norm: str, log_offset: float) -> Tensor:
+    return logmel_plain(wav, _params(sample_rate, win_length, hop_length, n_fft, n_mels, fmin, fmax, htk_mel,
+                                     mel_norm, log_offset), n_frames)
+
+
+@_logmel_op.register_kernel("cuda")
+def _logmel_cuda(wav, n_frames, *geom):
+    """K1: one launch for the batch (a loaded program calls the op without
+    the wrapper, so the checks run here too)."""
+    p = _params(*geom)
+    _check_wav(wav, p, n_frames)
     wav = wav.contiguous()
     out = torch.empty((wav.shape[0], n_frames, p.n_mels), device=wav.device)
     stream = torch.cuda.current_stream(wav.device).cuda_stream
@@ -246,6 +293,11 @@ def logmel(wav: torch.Tensor, p, n_frames: int) -> torch.Tensor:
     logmel.launches += 1
     logmel.branch = branch
     return out
+
+
+@_logmel_op.register_fake
+def _logmel_fake(wav, n_frames, sample_rate, win_length, hop_length, n_fft, n_mels, *rest):
+    return wav.new_empty((wav.shape[0], n_frames, n_mels))
 
 
 logmel.launches = 0  # kernel launches since the last reset
@@ -293,19 +345,38 @@ def _framed_lib() -> ctypes.CDLL:
     return lib
 
 
-def logmel_frames(frames: torch.Tensor, p) -> torch.Tensor:
-    """Frame rows [R, n_fft] float32 → [R, n_mels]: the kernel K4 for a CUDA
-    tensor, :func:`logmel_framed_plain` for a CPU tensor."""
+def _check_frames(frames: torch.Tensor, p) -> None:
     if frames.ndim != 2 or frames.dtype != torch.float32 or frames.shape[1] != p.n_fft:
         raise ValueError(
             f"expect float32 [rows, n_fft={p.n_fft}], got {frames.dtype} {tuple(frames.shape)}"
         )
     if frames.shape[0] == 0:
         raise ValueError("no frame rows")
-    if frames.device.type == "cpu":
-        return logmel_framed_plain(frames, p)
-    if frames.device.type != "cuda":
+    if frames.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {frames.device}")
+
+
+def logmel_frames(frames: torch.Tensor, p) -> torch.Tensor:
+    """Frame rows [R, n_fft] float32 → [R, n_mels] through
+    ``s2i::logmel_frames``: the kernel K4 for a CUDA tensor,
+    :func:`logmel_framed_plain` for a CPU tensor."""
+    _check_frames(frames, p)
+    return torch.ops.s2i.logmel_frames(frames, *geometry(p))
+
+
+@torch.library.custom_op("s2i::logmel_frames", mutates_args=(), device_types="cpu")
+def _logmel_frames_op(frames: Tensor, sample_rate: int, win_length: int, hop_length: int, n_fft: int,
+                      n_mels: int, fmin: float, fmax: float, htk_mel: bool, mel_norm: str,
+                      log_offset: float) -> Tensor:
+    return logmel_framed_plain(frames, _params(sample_rate, win_length, hop_length, n_fft, n_mels, fmin, fmax,
+                                               htk_mel, mel_norm, log_offset))
+
+
+@_logmel_frames_op.register_kernel("cuda")
+def _logmel_frames_cuda(frames, *geom):
+    """K4: one launch for all rows."""
+    p = _params(*geom)
+    _check_frames(frames, p)
     frames = frames.contiguous()
     out = torch.empty((frames.shape[0], p.n_mels), device=frames.device)
     stream = torch.cuda.current_stream(frames.device).cuda_stream
@@ -331,6 +402,11 @@ def logmel_frames(frames: torch.Tensor, p) -> torch.Tensor:
     logmel_frames.launches += 1
     logmel_frames.branch = branch
     return out
+
+
+@_logmel_frames_op.register_fake
+def _logmel_frames_fake(frames, sample_rate, win_length, hop_length, n_fft, n_mels, *rest):
+    return frames.new_empty((frames.shape[0], n_mels))
 
 
 logmel_frames.launches = 0  # kernel launches since the last reset

@@ -6,6 +6,12 @@
     pipe = SpeechToImage(cfg, enc_sd, g_sd)          # state_dicts (bridge.py)
     pipe = SpeechToImage.from_checkpoints(cfg, enc_ckpt_dir, gan_ckpt_dir)  # what the port trained
     images = pipe.generate(wavs, wav_lens, seed=0)   # [B, S, S, 3]
+
+The device program behind ``generate`` is :class:`ServeProgram`, a module
+of (wavs, wav_lens, z) → images; ``export.export_pipeline`` saves that same
+module with ``torch.export``. The noise z is drawn outside it, from a
+``torch.Generator`` seeded per call, because ``torch.export`` cannot trace
+a generator.
 """
 
 from __future__ import annotations
@@ -14,7 +20,7 @@ import numpy as np
 import torch
 
 from s2i_tpu_torch.audio.frontend import extract_features, frontend_params_from_cfg
-from s2i_tpu_torch.device import compute_dtype, resolve_device
+from s2i_tpu_torch.device import compute_dtype, draw_z, resolve_device
 from s2i_tpu_torch.models.encoder import SpeechEncoder
 from s2i_tpu_torch.models.generator import GNet
 from s2i_tpu_torch.utils.checkpoint import CheckpointManager
@@ -53,6 +59,33 @@ def build_generator(cfg) -> GNet:
         dtype=compute_dtype(cfg),
         up_mode=str(cfg.GAN.UPSAMPLE_MODE),
     )
+
+
+class ServeProgram(torch.nn.Module):
+    """wav → image on the device: the frontend (K1), the encoder (K2), CA's
+    μ, G's images at ``stage``, NHWC, quantized to [0, 255] bytes for
+    ``output_dtype="uint8"`` (else [-1, 1] float32). ``forward(wavs
+    [B, n_samples] float32, wav_lens [B] int, z [B, Z_DIM] float32)``."""
+
+    def __init__(self, encoder: torch.nn.Module, g: torch.nn.Module, p, stage: int, output_dtype: str):
+        super().__init__()
+        if output_dtype not in ("float32", "uint8"):
+            raise ValueError(f"output_dtype {output_dtype!r}: float32 or uint8")
+        self.encoder = encoder
+        self.g = g
+        self.p = p
+        self.stage = stage
+        self.output_dtype = output_dtype
+
+    def forward(self, wavs: torch.Tensor, wav_lens: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        feats, mask = extract_features(wavs, self.p, wav_len=wav_lens, device=wavs.device)
+        out = self.encoder(feats, mask)
+        emb = out[0] if isinstance(out, tuple) else out
+        mu, _ = self.g.ca_net(emb)
+        img = self.g(z, mu, n_stages=self.stage + 1)[self.stage].permute(0, 2, 3, 1)  # NHWC
+        if self.output_dtype == "uint8":
+            return torch.clamp((img + 1.0) * 127.5 + 0.5, 0.0, 255.0).to(torch.uint8)
+        return img.contiguous()
 
 
 def _load(module: torch.nn.Module, state_dict: dict) -> None:
@@ -142,19 +175,17 @@ class SpeechToImage:
         wavs = torch.as_tensor(wavs, dtype=torch.float32).to(self.device, non_blocking=True)
         if wav_lens is None:
             wav_lens = torch.full((wavs.shape[0],), wavs.shape[1], dtype=torch.int32)
-        feats, mask = extract_features(wavs, self.p, wav_len=wav_lens, device=self.device)
-        out = self.encoder(feats, mask)
-        emb = out[0] if isinstance(out, tuple) else out
-        mu, _ = self.g.ca_net(emb)
+        wav_lens = torch.as_tensor(wav_lens, device=self.device)
         if z is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            z = torch.randn((wavs.shape[0], self.z_dim), generator=gen, device=self.device)
+            z = draw_z(seed, wavs.shape[0], self.z_dim, self.device)
         else:
             z = torch.tensor(np.asarray(z), dtype=torch.float32, device=self.device)
-        img = self.g(z, mu, n_stages=stage + 1)[stage].permute(0, 2, 3, 1)  # NHWC
-        if output_dtype == "uint8":
-            return torch.clamp((img + 1.0) * 127.5 + 0.5, 0.0, 255.0).to(torch.uint8)
-        return img.contiguous()
+        return self.program(stage, output_dtype)(wavs, wav_lens, z)
+
+    def program(self, stage: int = -1, output_dtype: str = "float32") -> ServeProgram:
+        """The device program of :meth:`generate_async` at ``stage`` and
+        ``output_dtype``, on this pipeline's modules."""
+        return ServeProgram(self.encoder, self.g, self.p, stage % self.branch_num, output_dtype)
 
     def generate_files(self, wav_paths: list[str], out_paths: list[str],
                        seed: int = 0) -> None:

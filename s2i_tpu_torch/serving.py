@@ -180,8 +180,9 @@ def make_server(
     max_body_bytes: int = 8 << 20, job_timeout_s: float = 120.0,
     device: str | torch.device = "cuda",
 ) -> ThreadingHTTPServer:
-    """An HTTP server over ``pipe`` (a ``SpeechToImage`` built for the same
-    ``device``). ``max_body_bytes`` caps the request body before it is read
+    """An HTTP server over ``pipe``: a ``SpeechToImage`` or an
+    ``export.LoadedPipeline`` (an artifact), on the same device type as
+    ``device``. ``max_body_bytes`` caps the request body before it is read
     (oversize → 413); ``job_timeout_s`` bounds how long a handler waits for
     its batch. ``warmup`` runs one full batch before accepting traffic."""
     dev = resolve_device(device)

@@ -3,7 +3,8 @@ counterpart of ``s2i_tpu/train/encoder.py``.
 
 One step: encoder forward in train mode on (features, mask) → MSE to the
 teacher embedding (+ ``CE_COEFF`` × class CE) → backward (the recurrence's
-through ``GRUScan``: K3 on the card) → Adam with optax ``adam``'s defaults.
+through the op ``s2i::gru_scan``'s registered backward: K3 on the card) →
+Adam with optax ``adam``'s defaults.
 Extraction runs the eval-mode encoder over a corpus in fixed-size batches.
 Both compute in ``DTYPE.COMPUTE`` (``pipeline.build_encoder``); the
 optimizer is plain Adam whatever ``TRAIN.MOMENT_DTYPE`` says, as in the JAX

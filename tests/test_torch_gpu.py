@@ -761,3 +761,70 @@ def test_inception_finetune_step_on_the_card_matches_cpu(card):
     for k, v in gpu.model.state_dict().items():
         if "running" in k:
             np.testing.assert_allclose(v.cpu().numpy(), sd[k].numpy(), atol=1e-4, rtol=0, err_msg=k)
+
+
+def test_custom_ops_on_the_card_are_the_direct_launches(card):
+    """Each custom op's CUDA registration is the hand-written kernel: what
+    the dispatcher returns is bitwise what the direct launch returns, and
+    each advances its wrapper's counter by one launch."""
+    p = tf.FrontendParams()
+    wav = torch.from_numpy(_signals(16000)).to(card)
+    n = mel_kernel.num_frames(16000, p)
+    geo = mel_kernel.geometry(p)
+    rows = mel_kernel.frame_rows(wav, p, n)
+    dev, dys = _gru_args(128, 24, 512, card, d=2)
+    args = [dev[k] for k in ("xw", "w_h", "b_h", "mask", "h0")]
+    ys = gru_kernel._gru_fwd(*args)
+    cases = (
+        (mel_kernel.logmel, lambda: torch.ops.s2i.logmel(wav, n, *geo), lambda: mel_kernel._logmel_cuda(wav, n, *geo)),
+        (mel_kernel.logmel_frames, lambda: torch.ops.s2i.logmel_frames(rows, *geo),
+         lambda: mel_kernel._logmel_frames_cuda(rows, *geo)),
+        (gru_kernel.gru_scan, lambda: torch.ops.s2i.gru_scan(*args), lambda: gru_kernel._gru_fwd(*args)),
+        (gru_kernel.gru_scan_bwd, lambda: torch.ops.s2i.gru_scan_bwd(*args, ys, dys),
+         lambda: gru_kernel._gru_bwd(*args, ys, dys)),
+    )
+    for wrapper, op, direct in cases:
+        before = wrapper.launches
+        got = op()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        want = direct()
+        for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g, w)
+    # the op's registered backward is K3 on the card
+    leaves = [a if k == "mask" else a.clone().requires_grad_()
+              for k, a in zip(("xw", "w_h", "b_h", "mask", "h0"), args)]
+    before = gru_kernel.gru_scan.launches, gru_kernel.gru_scan_bwd.launches
+    out = gru_kernel.gru_scan(*leaves)
+    grads = torch.autograd.grad(out, [leaves[i] for i in (0, 1, 2, 4)], dys)
+    assert (gru_kernel.gru_scan.launches, gru_kernel.gru_scan_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for g, w in zip(grads, gru_kernel._gru_bwd(*args, ys, dys)):
+        assert torch.equal(g, w)
+
+
+def test_bf16_artifact_on_the_card_equals_the_live_pipeline(card, tmp_path):
+    """A bfloat16 (the shipped cfgs' type) pipeline at a small width saved
+    with torch.export and loaded back on the card: its kernels launch
+    inside the loaded program, once each a call, and its uint8 images equal
+    the live pipeline's at an exact fit and padded."""
+    from s2i_tpu_torch import export
+
+    cfg = config.apply_overrides(config.default_cfg(), [
+        "TREE.BRANCH_NUM=2", "GAN.GF_DIM=8", "GAN.Z_DIM=6", "GAN.EMBEDDING_DIM=6", "TEXT.DIMENSION=12",
+        "AUDIO.MAX_FRAMES=64", "ENCODER.CONV_CHANNELS=[8, 16]", "ENCODER.RNN_HIDDEN=16"])
+    assert cfg.DTYPE.COMPUTE == "bfloat16"
+    torch.manual_seed(0)
+    live = SpeechToImage(cfg, build_encoder(cfg).state_dict(), build_generator(cfg).state_dict(), device="cuda")
+    meta = export.export_pipeline(live, str(tmp_path), batch_sizes=(2, 4))
+    assert meta["platforms"] == ["cuda"] and meta["device_name"] == torch.cuda.get_device_name(0)
+    loaded = export.load(str(tmp_path))
+    n = live.p.max_samples
+    wavs = _signals(n, b=4)
+    lens = np.array([n, n // 3, n // 2, 900], np.int32)
+    before = mel_kernel.logmel.launches, gru_kernel.gru_scan.launches
+    got = loaded.generate(wavs, lens, seed=3)
+    assert (mel_kernel.logmel.launches, gru_kernel.gru_scan.launches) == (before[0] + 1, before[1] + 1)
+    np.testing.assert_array_equal(got, live.generate(wavs, lens, seed=3, output_dtype="uint8"))
+    padded = live.generate(np.concatenate([wavs[:3], np.zeros((1, n), np.float32)]), np.append(lens[:3], n),
+                           seed=4, output_dtype="uint8")
+    np.testing.assert_array_equal(loaded.generate(wavs[:3], lens[:3], seed=4), padded[:3])

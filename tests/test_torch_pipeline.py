@@ -21,6 +21,7 @@ from s2i_tpu.train.encoder import EncoderTrainState
 from s2i_tpu.train.gan import GanTrainState
 from s2i_tpu_torch import bridge
 from s2i_tpu_torch import config as port_config
+from s2i_tpu_torch.export import export_pipeline, load
 from s2i_tpu_torch.pipeline import SpeechToImage
 from tests._flax_random import random_variables
 
@@ -114,7 +115,7 @@ def frozen():
 
 
 @pytest.mark.parametrize("joint", [False, True], ids=["frozen-encoder", "joint"])
-def test_wav_to_image_matches_jax(joint, request):
+def test_wav_to_image_matches_jax(joint, request, tmp_path):
     if joint:
         cfg = _cfg(True)
         enc_state, gan_state = _states(cfg, True)
@@ -144,6 +145,12 @@ def test_wav_to_image_matches_jax(joint, request):
                 pipe.generate(wavs, lens, stage=stage)
         small = pipe.generate(wavs, lens, z=z, stage=-3)
         assert small.shape == (3, 64, 64, 3)
+        # the pipeline as an AOT artifact (s2i_tpu_torch/export.py), through disk, float32 images
+        # with the same z: the live port's bitwise, so the JAX package's within ATOL
+        export_pipeline(pipe, str(tmp_path / "artifact"), batch_sizes=(len(wavs),), quantize=False)
+        art = load(str(tmp_path / "artifact"), device="cpu").generate(wavs, lens, z=z)
+        np.testing.assert_array_equal(art, got)
+        np.testing.assert_allclose(art, want, atol=ATOL, rtol=0)
 
 
 def test_seeded_noise_and_generate_files(tmp_path, frozen):
