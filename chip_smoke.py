@@ -74,6 +74,7 @@ Phases, each of which passes or raises (nothing is caught):
                make_server(loaded); export and load seconds, artifact
                bytes, first-call ms, batch latency at B=8 and device memory
                after load and at peak, artifact beside the live pipeline;
+               its launches are those of the loaded program's calls alone;
  10. loop    - the trainer loop (train.loop.GanTrainer) on the joint cfg,
                in bfloat16 with bfloat16 Adam moments, at
                full width, batch 24, with cuDNN's deterministic algorithms:
@@ -1320,12 +1321,25 @@ def phase_export(card: str) -> dict[str, int]:
     EXPORT_BATCHES, loaded in a fresh process with the model code blocked
     and in this one, held against the live pipeline, served over HTTP and
     timed beside it. The artifact goes to a temporary directory under
-    output/, deleted at the end."""
+    output/, deleted at the end. The launches it returns are the loaded
+    program's alone (each of its calls counted from zero, the fresh
+    process's included), not the live pipeline's reference calls."""
     ref = F32["serve_ref"]
     cfg = config.cfg_from_file("cfg/birds_3stages.yml")
     layers = int(cfg.ENCODER.RNN_LAYERS)
     wavs, lens = ref["wavs"], ref["lens"]
     reset_counts()
+    counted = dict.fromkeys(KERNELS, 0)  # the loaded program's launches
+
+    def on_artifact(fn):
+        """fn() (calls of the loaded program only), the counts set to 0 just
+        before it and added to ``counted`` just after."""
+        reset_counts()
+        try:
+            return fn()
+        finally:
+            for k, v in read_counts().items():
+                counted[k] += v
 
     def allocated() -> int:
         """Device bytes held, after the earlier phases' garbage is freed."""
@@ -1365,6 +1379,8 @@ def phase_export(card: str) -> dict[str, int]:
             f"{BATCH} WAVs K1/K2 launches and host ms {sub['calls']}")
         if sub["model_modules"] or any(c[:2] != [1, layers] for c in sub["calls"]):
             raise AssertionError(f"[export] expected no model module and 1 K1 + {layers} K2 launches a call: {sub}")
+        counted["mel_fused"] += sum(c[0] for c in sub["calls"])
+        counted["gru_fwd"] += sum(c[1] for c in sub["calls"])
 
         # this process: the artifact against the live pipeline, seed for seed
         base = allocated()
@@ -1373,11 +1389,10 @@ def phase_export(card: str) -> dict[str, int]:
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
         art_resident = allocated() - base
-        before = read_counts()
         t0 = time.perf_counter()
-        got = loaded.generate(wavs, lens, seed=1)
+        got = on_artifact(lambda: loaded.generate(wavs, lens, seed=1))
         first_ms = 1e3 * (time.perf_counter() - t0)
-        one = {k: v - before[k] for k, v in read_counts().items()}
+        one = read_counts()
         if (one["mel_fused"], one["gru_fwd"]) != (1, layers):
             raise AssertionError(f"[export] one program call launched {one}")
         want = pipe.generate(wavs, lens, seed=1, output_dtype="uint8")
@@ -1389,11 +1404,11 @@ def phase_export(card: str) -> dict[str, int]:
             return np.concatenate([x, np.full((rows - len(x), *x.shape[1:]), fill, x.dtype)])
 
         lines.append(pixels_apart(
-            loaded.generate(wavs[:3], lens[:3], seed=2),
+            on_artifact(lambda: loaded.generate(wavs[:3], lens[:3], seed=2)),
             pipe.generate(pad(wavs[:3], BATCH, 0), pad(lens[:3], BATCH, n), seed=2, output_dtype="uint8")[:3],
             "B=3 (padded to 8)"))
         w12, l12 = np.concatenate([wavs, wavs[:4]]), np.concatenate([lens, lens[:4]])
-        got12 = loaded.generate(w12, l12, seed=5)
+        got12 = on_artifact(lambda: loaded.generate(w12, l12, seed=5))
         want12 = np.concatenate([
             pipe.generate(w12[:BATCH], l12[:BATCH], seed=5, output_dtype="uint8"),
             pipe.generate(pad(w12[BATCH:], BATCH, 0), pad(l12[BATCH:], BATCH, n), seed=s2i_export.chunk_seed(5, 1),
@@ -1407,13 +1422,17 @@ def phase_export(card: str) -> dict[str, int]:
             buf = io.BytesIO()
             write_wav(buf, w[:m], loaded.p.sample_rate)
             bodies.append(buf.getvalue())
-        srv = make_server(loaded, "127.0.0.1", 0, batch_size=BATCH, device="cuda")
-        threading.Thread(target=srv.serve_forever, daemon=True).start()
-        try:
-            answers = post_wavs(f"http://127.0.0.1:{srv.server_address[1]}", bodies)
-        finally:
-            srv.shutdown()
-            srv.server_close()
+
+        def serve() -> list[tuple[int, bytes]]:
+            srv = make_server(loaded, "127.0.0.1", 0, batch_size=BATCH, device="cuda")
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+            try:
+                return post_wavs(f"http://127.0.0.1:{srv.server_address[1]}", bodies)
+            finally:
+                srv.shutdown()
+                srv.server_close()
+
+        answers = on_artifact(serve)
         for status, png in answers:
             size = (int.from_bytes(png[16:20], "big"), int.from_bytes(png[20:24], "big"))
             if status != 200 or png[:8] != b"\x89PNG\r\n\x1a\n" or size != (256, 256):
@@ -1425,7 +1444,8 @@ def phase_export(card: str) -> dict[str, int]:
         times, peaks = {k: [] for k in runs}, {k: 0.0 for k in runs}
         for k in ("live", "artifact", "artifact", "live"):
             held = allocated() / 2**20
-            ts, peak, _ = timed_steps(runs[k], LATENCY_RUNS // 2)
+            run = lambda: timed_steps(runs[k], LATENCY_RUNS // 2)  # noqa: E731
+            ts, peak, _ = on_artifact(run) if k == "artifact" else run()
             times[k] += ts
             peaks[k] = max(peaks[k], peak - held)
         f = lambda ts: f"median {np.median(ts):.2f} min {min(ts):.2f} max {max(ts):.2f} (n={len(ts)})"  # noqa: E731
@@ -1436,10 +1456,10 @@ def phase_export(card: str) -> dict[str, int]:
             f"{peaks['artifact']:.0f} | live {peaks['live']:.0f} MiB")
     finally:
         shutil.rmtree(out, ignore_errors=True)
-    launches = read_counts()
-    if not (launches["mel_fused"] and launches["gru_fwd"]):
-        raise AssertionError(f"[export] a kernel of the path never launched: {launches}")
-    return launches
+    log(f"[export] launches of the loaded program's calls (this process and the fresh one): {counted}")
+    if not counted["mel_fused"] or counted["gru_fwd"] != layers * counted["mel_fused"]:
+        raise AssertionError(f"[export] expected 1 K1 and {layers} K2 launches a program call: {counted}")
+    return counted
 
 
 def phase_loop(card: str) -> dict[str, int]:

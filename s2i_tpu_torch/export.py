@@ -16,7 +16,8 @@ versions). The program has one dynamic batch dimension, so its weights are
 stored, loaded and held on the device once; ``batch_sizes`` is the serving
 policy, as the JAX package's ``model_b{N}`` files are: a request pads to
 the smallest exported batch ≥ its size, and a larger one splits into
-chunks of the largest. ``files`` maps each batch size to the program file.
+chunks of the largest. ``files`` maps each batch size to the program file
+(all to the one program), as the JAX package's meta does.
 
 The kernels are ``torch.library`` custom ops (``s2i::logmel``,
 ``s2i::gru_scan``; ``s2i_tpu_torch/ops``), so they appear in the saved
@@ -126,16 +127,12 @@ class LoadedPipeline:
             raise ValueError(f"artifact exported for {self.meta['platforms']}, asked to run on {kind!r}: "
                              f"re-export on a {kind} device")
         self.device = resolve_device(device)
-        programs = {}
-        for name in sorted(set(self.meta["files"].values())):
-            try:
-                programs[name] = torch.export.load(os.path.join(path, name)).module()
-            except Exception as e:  # the saved format is torch's own: name both versions
-                raise RuntimeError(f"cannot load {name}, exported with torch {self.meta['torch_version']}, "
-                                   f"into torch {torch.__version__}: {type(e).__name__}: {e}") from e
-        # batch size → the loaded program (one module for every size of a dynamic program)
-        self.programs = {int(b): programs[name] for b, name in self.meta["files"].items()}
-        self.batch_sizes = sorted(self.programs)
+        try:
+            self.program = torch.export.load(os.path.join(path, PROGRAM)).module()
+        except Exception as e:  # the saved format is torch's own: name both versions
+            raise RuntimeError(f"cannot load {PROGRAM}, exported with torch {self.meta['torch_version']}, "
+                               f"into torch {torch.__version__}: {type(e).__name__}: {e}") from e
+        self.batch_sizes = sorted(int(b) for b in self.meta["batch_sizes"])
         self.max_samples = int(self.meta["max_samples"])
         self.z_dim = int(self.meta["z_dim"])
         self.p = SimpleNamespace(
@@ -192,8 +189,8 @@ class LoadedPipeline:
                 zs = np.zeros((size, self.z_dim), np.float32)
                 zs[:rows] = z[start:start + rows]
                 chunk_z = torch.from_numpy(zs).to(self.device)
-            img = self.programs[size](torch.from_numpy(chunk).to(self.device, non_blocking=True),
-                                       torch.from_numpy(chunk_lens).to(self.device), chunk_z)
+            img = self.program(torch.from_numpy(chunk).to(self.device, non_blocking=True),
+                               torch.from_numpy(chunk_lens).to(self.device), chunk_z)
             parts.append(img if rows == size else img[:rows])
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 

@@ -35,7 +35,6 @@ import ctypes
 import functools
 
 import torch
-from torch import Tensor
 
 from s2i_tpu_torch.ops import build
 
@@ -177,8 +176,6 @@ def _check_args(xw, w_h, b_h, mask, h0, **states) -> None:
             raise ValueError(f"{name} is on {x.device}, xw on {xw.device}")
         if name != "mask" and x.dtype != torch.float32:
             raise ValueError(f"{name}: expected float32, got {x.dtype}")
-    if xw.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {xw.device}")
     if xw.device.type == "cuda" and h % 4:
         raise ValueError(f"the GRU kernels copy rows in 16-byte pieces: H={h} is not a multiple of 4")
 
@@ -194,23 +191,27 @@ def _rows(x, r0, r1, b, axis):
     return x if (r0, r1) == (0, b) else x.narrow(axis, r0, r1 - r0).contiguous()
 
 
+# The ops' definitions; their registrations last as long as this object.
+_LIB = torch.library.Library("s2i", "FRAGMENT")
+_LIB.define("gru_scan(Tensor xw, Tensor w_h, Tensor b_h, Tensor mask, Tensor h0) -> Tensor")
+_LIB.define("gru_scan_bwd(Tensor xw, Tensor w_h, Tensor b_h, Tensor mask, Tensor h0, Tensor ys, Tensor dys) "
+            "-> (Tensor, Tensor, Tensor, Tensor)")
+
+
 def gru_scan(xw, w_h, b_h, mask, h0):
     """ys [D, T, B, H] through ``s2i::gru_scan``, differentiable in every
-    input but the mask."""
-    _check_args(xw, w_h, b_h, mask, h0)
+    input but the mask. The op's registrations check the arguments."""
     return torch.ops.s2i.gru_scan(xw, w_h, b_h, mask, h0)
 
 
-@torch.library.custom_op("s2i::gru_scan", mutates_args=(), device_types="cpu")
-def _gru_scan_op(xw: Tensor, w_h: Tensor, b_h: Tensor, mask: Tensor, h0: Tensor) -> Tensor:
+def _gru_fwd_cpu(xw, w_h, b_h, mask, h0):
+    _check_args(xw, w_h, b_h, mask, h0)
     return gru_scan_plain(xw, w_h, b_h, mask, h0)
 
 
-@_gru_scan_op.register_kernel("cuda")
 def _gru_fwd(xw, w_h, b_h, mask, h0):
     """ys [D, T, B, H] by K2, one launch per row chunk of the launch plan.
-    Counts its launches on :func:`gru_scan`. A loaded program calls the op
-    without the wrapper, so the checks run here too."""
+    Counts its launches on :func:`gru_scan`."""
     _check_args(xw, w_h, b_h, mask, h0)
     d, t, b, h3 = xw.shape
     h = h3 // 3
@@ -249,7 +250,6 @@ def gru_scan_bwd(xw, w_h, b_h, mask, h0, ys, dys, events=None):
     batch too large for one launch records them on its last launch); event
     handles cannot go through an op's schema, so a call with events
     launches K3 directly."""
-    _check_args(xw, w_h, b_h, mask, h0, ys=ys, dys=dys)
     if events is not None:
         if xw.device.type != "cuda":
             raise ValueError(f"events time K3 on a card; the tensors are on {xw.device}")
@@ -257,13 +257,11 @@ def gru_scan_bwd(xw, w_h, b_h, mask, h0, ys, dys, events=None):
     return torch.ops.s2i.gru_scan_bwd(xw, w_h, b_h, mask, h0, ys, dys)
 
 
-@torch.library.custom_op("s2i::gru_scan_bwd", mutates_args=(), device_types="cpu")
-def _gru_scan_bwd_op(xw: Tensor, w_h: Tensor, b_h: Tensor, mask: Tensor, h0: Tensor, ys: Tensor,
-                     dys: Tensor) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+def _gru_bwd_cpu(xw, w_h, b_h, mask, h0, ys, dys):
+    _check_args(xw, w_h, b_h, mask, h0, ys=ys, dys=dys)
     return gru_scan_bwd_plain(xw, w_h, b_h, mask, h0, ys, dys.contiguous())
 
 
-@_gru_scan_bwd_op.register_kernel("cuda")
 def _gru_bwd(xw, w_h, b_h, mask, h0, ys, dys, events=None):
     """K3, one launch per row chunk of the launch plan. Counts its launches
     on :func:`gru_scan_bwd`."""
@@ -312,13 +310,19 @@ def _gru_bwd(xw, w_h, b_h, mask, h0, ys, dys, events=None):
     return dxw, dw_h, db_h, dh0
 
 
-@_gru_scan_op.register_fake
+_LIB.impl("gru_scan", _gru_fwd_cpu, "CPU")
+_LIB.impl("gru_scan", _gru_fwd, "CUDA")
+_LIB.impl("gru_scan_bwd", _gru_bwd_cpu, "CPU")
+_LIB.impl("gru_scan_bwd", _gru_bwd, "CUDA")
+
+
+@torch.library.register_fake("s2i::gru_scan", lib=_LIB)
 def _gru_scan_fake(xw, w_h, b_h, mask, h0):
     d, t, b, h3 = xw.shape
     return xw.new_empty((d, t, b, h3 // 3))
 
 
-@_gru_scan_bwd_op.register_fake
+@torch.library.register_fake("s2i::gru_scan_bwd", lib=_LIB)
 def _gru_scan_bwd_fake(xw, w_h, b_h, mask, h0, ys, dys):
     return tuple(x.new_empty(x.shape) for x in (xw, w_h, b_h, h0))
 
@@ -333,7 +337,7 @@ def _gru_scan_backward(ctx, dys):
     return dxw, dw_h, db_h, None, dh0
 
 
-_gru_scan_op.register_autograd(_gru_scan_backward, setup_context=_save_for_backward)
+torch.library.register_autograd("s2i::gru_scan", _gru_scan_backward, setup_context=_save_for_backward, lib=_LIB)
 
 gru_scan.launches = 0  # K2 launches since the last reset
 gru_scan_bwd.launches = 0  # K3 launches since the last reset

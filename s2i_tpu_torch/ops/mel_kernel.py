@@ -25,10 +25,16 @@ Both wrappers call ``torch.library`` custom ops, ``s2i::logmel`` and
 ``s2i::logmel_frames``, so that ``torch.export`` carries the kernels into a
 saved program (``s2i_tpu_torch/export.py``). An op takes the frame
 geometry as scalars (:func:`geometry`), since a schema cannot take
-``FrontendParams``; its CUDA registration launches the kernel, its CPU
-registration runs the plain version, and its fake registration gives the
-output's shape for tracing. The dispatcher picks the registration by the
-tensor's device.
+``FrontendParams``; its CUDA registration checks the arguments and
+launches the kernel, its CPU registration checks them and runs the plain
+version, and its fake registration gives the output's shape for tracing.
+The dispatcher picks the registration by the tensor's device.
+
+The ops (these and the GRU's) are defined on a ``torch.library.Library``
+with one kernel per dispatch key, not with ``torch.library.custom_op``,
+whose per-call wrappers (an output aliasing check, a dynamo guard) added
+tens of microseconds of host time to each call on an H100 machine, where
+the serve batch waits on the host (``tools_torch/serve_ab.py``, PERF.md).
 """
 
 from __future__ import annotations
@@ -39,7 +45,6 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import Tensor
 
 from s2i_tpu_torch.audio import filters
 from s2i_tpu_torch.ops import build
@@ -66,6 +71,14 @@ def _params(sample_rate, win_length, hop_length, n_fft, n_mels, fmin, fmax, htk_
     return FrontendParams(sample_rate=sample_rate, win_length=win_length, hop_length=hop_length, n_fft=n_fft,
                           n_mels=n_mels, fmin=fmin, fmax=fmax, htk_mel=htk_mel, mel_norm=mel_norm,
                           log_offset=log_offset)
+
+
+# The ops' definitions; their registrations last as long as this object.
+_LIB = torch.library.Library("s2i", "FRAGMENT")
+_GEOMETRY = ("int sample_rate, int win_length, int hop_length, int n_fft, int n_mels, float fmin, float fmax, "
+             "bool htk_mel, str mel_norm, float log_offset")  # the order of geometry()
+_LIB.define(f"logmel(Tensor wav, int n_frames, {_GEOMETRY}) -> Tensor")
+_LIB.define(f"logmel_frames(Tensor frames, {_GEOMETRY}) -> Tensor")
 
 
 def logmel_plain(wav: torch.Tensor, p, n_frames: int) -> torch.Tensor:
@@ -239,29 +252,23 @@ def _check_wav(wav: torch.Tensor, p, n_frames: int) -> None:
             f"n_frames={n_frames} not in 1..{num_frames(wav.shape[1], p)} "
             f"for {wav.shape[1]} samples"
         )
-    if wav.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {wav.device}")
 
 
 def logmel(wav: torch.Tensor, p, n_frames: int) -> torch.Tensor:
     """[B, n_samples] float32 → [B, n_frames, n_mels] through
     ``s2i::logmel``: the kernel for a CUDA tensor, :func:`logmel_plain` for
-    a CPU tensor."""
-    _check_wav(wav, p, n_frames)
+    a CPU tensor. The op's registrations check the arguments."""
     return torch.ops.s2i.logmel(wav, n_frames, *geometry(p))
 
 
-@torch.library.custom_op("s2i::logmel", mutates_args=(), device_types="cpu")
-def _logmel_op(wav: Tensor, n_frames: int, sample_rate: int, win_length: int, hop_length: int, n_fft: int,
-               n_mels: int, fmin: float, fmax: float, htk_mel: bool, mel_norm: str, log_offset: float) -> Tensor:
-    return logmel_plain(wav, _params(sample_rate, win_length, hop_length, n_fft, n_mels, fmin, fmax, htk_mel,
-                                     mel_norm, log_offset), n_frames)
+def _logmel_cpu(wav, n_frames, *geom):
+    p = _params(*geom)
+    _check_wav(wav, p, n_frames)
+    return logmel_plain(wav, p, n_frames)
 
 
-@_logmel_op.register_kernel("cuda")
 def _logmel_cuda(wav, n_frames, *geom):
-    """K1: one launch for the batch (a loaded program calls the op without
-    the wrapper, so the checks run here too)."""
+    """K1: one launch for the batch."""
     p = _params(*geom)
     _check_wav(wav, p, n_frames)
     wav = wav.contiguous()
@@ -295,7 +302,11 @@ def _logmel_cuda(wav, n_frames, *geom):
     return out
 
 
-@_logmel_op.register_fake
+_LIB.impl("logmel", _logmel_cpu, "CPU")
+_LIB.impl("logmel", _logmel_cuda, "CUDA")
+
+
+@torch.library.register_fake("s2i::logmel", lib=_LIB)
 def _logmel_fake(wav, n_frames, sample_rate, win_length, hop_length, n_fft, n_mels, *rest):
     return wav.new_empty((wav.shape[0], n_frames, n_mels))
 
@@ -352,27 +363,22 @@ def _check_frames(frames: torch.Tensor, p) -> None:
         )
     if frames.shape[0] == 0:
         raise ValueError("no frame rows")
-    if frames.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {frames.device}")
 
 
 def logmel_frames(frames: torch.Tensor, p) -> torch.Tensor:
     """Frame rows [R, n_fft] float32 → [R, n_mels] through
     ``s2i::logmel_frames``: the kernel K4 for a CUDA tensor,
-    :func:`logmel_framed_plain` for a CPU tensor."""
-    _check_frames(frames, p)
+    :func:`logmel_framed_plain` for a CPU tensor. The op's registrations
+    check the arguments."""
     return torch.ops.s2i.logmel_frames(frames, *geometry(p))
 
 
-@torch.library.custom_op("s2i::logmel_frames", mutates_args=(), device_types="cpu")
-def _logmel_frames_op(frames: Tensor, sample_rate: int, win_length: int, hop_length: int, n_fft: int,
-                      n_mels: int, fmin: float, fmax: float, htk_mel: bool, mel_norm: str,
-                      log_offset: float) -> Tensor:
-    return logmel_framed_plain(frames, _params(sample_rate, win_length, hop_length, n_fft, n_mels, fmin, fmax,
-                                               htk_mel, mel_norm, log_offset))
+def _logmel_frames_cpu(frames, *geom):
+    p = _params(*geom)
+    _check_frames(frames, p)
+    return logmel_framed_plain(frames, p)
 
 
-@_logmel_frames_op.register_kernel("cuda")
 def _logmel_frames_cuda(frames, *geom):
     """K4: one launch for all rows."""
     p = _params(*geom)
@@ -404,7 +410,11 @@ def _logmel_frames_cuda(frames, *geom):
     return out
 
 
-@_logmel_frames_op.register_fake
+_LIB.impl("logmel_frames", _logmel_frames_cpu, "CPU")
+_LIB.impl("logmel_frames", _logmel_frames_cuda, "CUDA")
+
+
+@torch.library.register_fake("s2i::logmel_frames", lib=_LIB)
 def _logmel_frames_fake(frames, sample_rate, win_length, hop_length, n_fft, n_mels, *rest):
     return frames.new_empty((frames.shape[0], n_mels))
 

@@ -118,6 +118,7 @@ class SpeechToImage:
         _load(self.g, g_state_dict)
         self.encoder.to(self.device).eval()
         self.g.to(self.device).eval()
+        self._programs: dict[tuple[int, str], ServeProgram] = {}
 
     @classmethod
     def from_checkpoints(cls, cfg, encoder_ckpt: str | None, gan_ckpt: str, use_ema: bool = True,
@@ -184,8 +185,11 @@ class SpeechToImage:
 
     def program(self, stage: int = -1, output_dtype: str = "float32") -> ServeProgram:
         """The device program of :meth:`generate_async` at ``stage`` and
-        ``output_dtype``, on this pipeline's modules."""
-        return ServeProgram(self.encoder, self.g, self.p, stage % self.branch_num, output_dtype)
+        ``output_dtype``, on this pipeline's modules: built once for each."""
+        key = (stage % self.branch_num, output_dtype)
+        if key not in self._programs:
+            self._programs[key] = ServeProgram(self.encoder, self.g, self.p, *key)
+        return self._programs[key]
 
     def generate_files(self, wav_paths: list[str], out_paths: list[str],
                        seed: int = 0) -> None:

@@ -175,7 +175,7 @@ def test_gradients_reach_every_parameter_through_gru_scan(monkeypatch):
     cfg = tiny_cfg()
     state = enc_train.init_encoder_state(cfg, device="cpu")
     mets = enc_train.encoder_train_step(state, make_ds(cfg).batch(np.arange(BATCH)))
-    assert calls == [2]  # both directions of the layer in one call of GRUScan's backward
+    assert calls == [2]  # both directions of the layer in one call of s2i::gru_scan's backward
     assert np.isfinite(float(mets["loss"]))
     for name, p in state.model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all() and p.grad.abs().max() > 0, name
