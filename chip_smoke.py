@@ -75,6 +75,22 @@ Phases, each of which passes or raises (nothing is caught):
                bytes, first-call ms, batch latency at B=8 and device memory
                after load and at peak, artifact beside the live pipeline;
                its launches are those of the loaded program's calls alone;
+  9c. ckpt   - checkpoint interchange with the reference project
+               (s2i_tpu_torch/port/): a seeded GAN state of
+               cfg/birds_3stages.yml at full width in float32 (G the serve
+               phase's, the EMA equal to it) through export-torch-gan to
+               reference netG.pth / netD{64,128,256}.pth, netG re-saved under
+               module. with num_batches_tracked and the serve phase's
+               encoder saved as a reference .pth the same way; then
+               port-torch-gan and port_encoder read them back and the ported
+               pair (ENCODER.CONV_PADDING torch) serves the serve phase's 8
+               WAVs at 256 px through SpeechToImage.from_checkpoints: uint8
+               images bitwise those of the pipeline of the source
+               state_dicts, float images within TOL_IMAGE of the plain
+               versions on the CPU, K1 once and K2 RNN_LAYERS times a batch;
+               export-torch-gan of the ported checkpoint gives the files'
+               tensors back bitwise; command seconds, file bytes and batch
+               latency;
  10. loop    - the trainer loop (train.loop.GanTrainer) on the joint cfg,
                in bfloat16 with bfloat16 Adam moments, at
                full width, batch 24, with cuDNN's deterministic algorithms:
@@ -174,6 +190,7 @@ from s2i_tpu_torch.models.inception import init_weights as init_inception
 from s2i_tpu_torch.models.layers import BatchNorm, Conv2d
 from s2i_tpu_torch.ops import build, gru_kernel, mel_kernel
 from s2i_tpu_torch.pipeline import SpeechToImage, build_encoder, build_generator
+from s2i_tpu_torch.port import port_encoder
 from s2i_tpu_torch.serving import make_server
 from s2i_tpu_torch.train import encoder as encoder_train
 from s2i_tpu_torch.train import gan
@@ -1462,6 +1479,116 @@ def phase_export(card: str) -> dict[str, int]:
     return counted
 
 
+def with_dataparallel_names(sd: dict) -> dict:
+    """``sd`` as ``nn.DataParallel`` saves it: every key under ``module.``,
+    and each BN's ``num_batches_tracked`` (the reference's BatchNorm keeps one)."""
+    out = {f"module.{k}": v for k, v in sd.items()}
+    for k in sd:
+        if k.endswith(".running_mean"):
+            out[f"module.{k[: -len('running_mean')]}num_batches_tracked"] = torch.tensor(1000)
+    return out
+
+
+def phase_ckpt(card: str) -> dict[str, int]:
+    """Checkpoint interchange with the reference project
+    (s2i_tpu_torch/port/, the export-torch-gan and port-torch-gan commands):
+    a seeded GAN state of cfg/birds_3stages.yml at full width (G the serve
+    phase's) exported to reference netG.pth / netD*.pth, netG re-saved as
+    DataParallel saves it and the serve phase's encoder as a reference .pth,
+    then both ported back and the pair served at 256 px on the card: uint8
+    images bitwise those of the source state_dicts' pipeline, float images
+    within TOL_IMAGE of the plain versions on the CPU, K1 and K2 once a
+    batch; the ported checkpoint exported again gives the files' tensors
+    bitwise. Files under output/, deleted at the end."""
+    ref = F32["serve_ref"]
+    # the serve phase's type, and a torch encoder's padding
+    over = ["DTYPE.COMPUTE=float32", "ENCODER.CONV_PADDING=torch"]
+    cfg = config.apply_overrides(config.cfg_from_file("cfg/birds_3stages.yml"), over)
+    wavs, lens, z = ref["wavs"], ref["lens"], ref["z"]
+    os.makedirs("output", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir="output")
+    sub = lambda *names: os.path.join(root, *names)  # noqa: E731
+    secs: dict[str, float] = {}
+
+    def timed(what: str, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[what] = time.perf_counter() - t0
+        return out
+
+    try:
+        # the files: a seeded port checkpoint (G the serve phase's, EMA = G), exported; netG and the
+        # encoder as the reference's DataParallel runs save them
+        state = gan.init_state(cfg, device="cuda")
+        state.models.g.load_state_dict(ref["g_sd"])
+        with torch.no_grad():
+            for name, p in state.models.g.named_parameters():
+                state.ema[name].copy_(p)
+        CheckpointManager(sub("run")).save(0, state)
+        del state
+        files = timed("export-torch-gan", lambda: entrypoints.main(["export-torch-gan", "--ckpt", sub("run"),
+                                                                   "--out", sub("ref")]))
+        netg = torch.load(files["netG.pth"], weights_only=True)
+        torch.save(with_dataparallel_names(netg), sub("ref", "netG_dp.pth"))
+        torch.save(with_dataparallel_names(ref["enc_sd"]), sub("ref", "audio_encoder.pth"))
+        sizes = {f: os.path.getsize(sub("ref", f)) for f in sorted(os.listdir(sub("ref")))}
+
+        # read them: port-torch-gan, port_encoder
+        netds = [files[f"netD{s}.pth"] for s in (256, 64, 128)]  # any order
+        timed("port-torch-gan", lambda: entrypoints.main([
+            "port-torch-gan", "--cfg", "cfg/birds_3stages.yml", "--netg", sub("ref", "netG_dp.pth"),
+            "--netd", *netds, "--out", sub("ported"), "--set", *over]))
+        enc_sd, meta = timed("port_encoder", lambda: port_encoder(sub("ref", "audio_encoder.pth"),
+                                                                  emb_dim=int(cfg.TEXT.DIMENSION)))
+        want_meta = {"n_mels": int(cfg.AUDIO.N_MELS), "emb_dim": int(cfg.TEXT.DIMENSION),
+                     "conv_channels": tuple(cfg.ENCODER.CONV_CHANNELS), "conv_kernel": int(cfg.ENCODER.CONV_KERNEL),
+                     "conv_stride": int(cfg.ENCODER.CONV_STRIDE), "conv_padding": "torch",
+                     "rnn_hidden": int(cfg.ENCODER.RNN_HIDDEN), "rnn_layers": int(cfg.ENCODER.RNN_LAYERS),
+                     "bidirectional": bool(cfg.ENCODER.BIDIRECTIONAL), "pool": str(cfg.ENCODER.POOL),
+                     "n_classes": int(cfg.ENCODER.N_CLASSES)}
+        if meta != want_meta:
+            raise AssertionError(f"[ckpt] port_encoder's meta {meta}, the cfg's encoder {want_meta}")
+        CheckpointManager(sub("encoder")).save(0, {"step": 0, "model": enc_sd})
+        ported_cfg = config.cfg_from_file(sub("ported", "ported_config.yml"))
+
+        # serve the ported pair on the card, counted from zero: one uint8 and one float32 batch
+        pipe = SpeechToImage.from_checkpoints(ported_cfg, sub("encoder"), sub("ported"), device="cuda")
+        source = SpeechToImage(cfg, ref["enc_sd"], ref["g_sd"], device="cuda")
+        reset_counts()
+        img = pipe.generate(wavs, lens, z=z, output_dtype="uint8")
+        img_f = pipe.generate(wavs, lens, z=z)
+        launches = read_counts()
+        same = np.array_equal(img, source.generate(wavs, lens, z=z, output_dtype="uint8"))
+        cpu = SpeechToImage(cfg, ref["enc_sd"], ref["g_sd"], device="cpu").generate(wavs, lens, z=z)
+        err = float(np.abs(img_f - cpu).max())
+        times, _, _ = timed("latency", lambda: timed_steps(
+            lambda: pipe.generate(wavs, lens, seed=1, output_dtype="uint8"), LATENCY_RUNS))
+        del pipe, source
+
+        # the round trip: the ported checkpoint exported again
+        back = timed("export-torch-gan again", lambda: entrypoints.main([
+            "export-torch-gan", "--ckpt", sub("ported"), "--out", sub("back")]))
+        diff = []
+        for name, path in back.items():
+            a, b = torch.load(path, weights_only=True), torch.load(files[name], weights_only=True)
+            if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+                diff.append(name)
+        log(f"[ckpt] {card}: {cfg.CONFIG_NAME} at full width, DTYPE.COMPUTE float32, ENCODER.CONV_PADDING "
+            f"torch; seconds {({k: round(v, 3) for k, v in secs.items() if k != 'latency'})}; file bytes {sizes}")
+        log(f"[ckpt] {card}: ported pair served, {img.shape} uint8 bitwise equal to the source pipeline's "
+            f"{same}; float images vs plain (CPU) max_abs_err {err:.3g} (tol {TOL_IMAGE}); launches {launches} "
+            f"for 2 batches; batch {BATCH} wav->uint8 latency ms median {np.median(times):.2f} min "
+            f"{min(times):.2f} max {max(times):.2f} (n={len(times)}); round trip bitwise, files differing {diff}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    layers = int(cfg.ENCODER.RNN_LAYERS)
+    if not (same and err <= TOL_IMAGE and not diff and img.shape == (BATCH, 256, 256, 3)):
+        raise AssertionError(f"[ckpt] ported pair: bitwise {same}, CPU error {err}, round trip differs {diff}")
+    if launches != {"mel_fused": 2, "gru_fwd": 2 * layers, "gru_bwd": 0, "mel_framed": 0}:
+        raise AssertionError(f"[ckpt] launches {launches}, expected K1 once and K2 {layers} times a batch")
+    return launches
+
+
 def phase_loop(card: str) -> dict[str, int]:
     """The trainer loop of cfg/birds_joint_ft.yml at full width and batch
     GAN_BATCH, in a temporary run directory deleted at the end: resume,
@@ -2266,7 +2393,8 @@ def main() -> None:
     card = f"{name} ({smi})"
     paths = {"serve": phase_serve(card), "train": phase_train(card), "mel_ab": phase_mel_ab(card),
              "gan": phase_gan(card, "cfg/birds_3stages.yml"), "joint": phase_gan(card, "cfg/birds_joint_ft.yml"),
-             "bf16": phase_bf16(card), "export": phase_export(card), "loop": phase_loop(card)}
+             "bf16": phase_bf16(card), "export": phase_export(card), "ckpt": phase_ckpt(card),
+             "loop": phase_loop(card)}
     os.makedirs("output", exist_ok=True)
     root = tempfile.mkdtemp(prefix="chip_smoke_data_", dir="output")
     try:

@@ -45,6 +45,11 @@ from pre-framed rows, for the frontend A/B only. The kernels' wrappers call
 ``python -m s2i_tpu_torch`` (entrypoints.py) also runs export / serve
 [--artifact] / speech-to-image.
 
+    port.port_gnet / port_dnet / port_encoder: the reference project's
+        netG.pth / netD*.pth / speech-encoder .pth → the port's state_dicts;
+        port.export_gnet / export_dnet: the way back (the port-torch-gan and
+        export-torch-gan commands, cli.run_port_gan / run_export_gan)
+
 Entry points (``pipeline.SpeechToImage`` and its ``from_checkpoints``,
 ``export.export_pipeline``, ``export.load``,
 ``serving.make_server``, ``audio.frontend.extract_features``,
@@ -53,7 +58,7 @@ Entry points (``pipeline.SpeechToImage`` and its ``from_checkpoints``,
 ``cli.run_embedding_extraction``, ``cli.run_gan_training``,
 ``cli.run_sampling``, ``eval.InceptionFeatures``,
 ``eval.retrieval_metrics``, ``eval.finetune.init_inception_state``,
-``cli.run_eval``, ``cli.run_retrieval``, ``cli.run_inception_finetune``,
+``cli.run_eval``, ``cli.run_retrieval``, ``cli.run_inception_finetune``, ``cli.run_port_gan``,
 the command line) run on ``device="cuda"`` unless
 the caller passes ``device="cpu"`` (``--device cpu``); without a card
 they raise instead of drifting to the CPU.

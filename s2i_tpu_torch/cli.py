@@ -4,7 +4,9 @@
 extract drivers that ``entrypoints.py`` and ``python -m s2i_tpu_torch`` run,
 and the metric drivers of ``scripts/eval.py`` and
 ``scripts/finetune_inception.py`` (``run_eval``, ``run_retrieval``,
-``run_inception_finetune``).
+``run_inception_finetune``), and the checkpoint interchange with the
+reference project of ``scripts/port_torch_gan.py`` and
+``scripts/export_torch_gan.py`` (``run_port_gan``, ``run_export_gan``).
 
     from s2i_tpu_torch import config, cli
     cfg = config.cfg_from_file("cfg/pretrain_encoder_birds.yml")
@@ -58,6 +60,8 @@ from s2i_tpu_torch.eval.finetune import init_inception_state, make_inception_tra
 from s2i_tpu_torch.eval.inception_score import softmax
 from s2i_tpu_torch.eval.weights import load_torch_inception
 from s2i_tpu_torch.pipeline import build_encoder
+from s2i_tpu_torch.port import export_dnet, export_gnet, load_torch_state_dict, port_dnet, port_gnet
+from s2i_tpu_torch.train import gan
 from s2i_tpu_torch.train.encoder import encoder_train_step, init_encoder_state
 from s2i_tpu_torch.train.loop import GanTrainer
 from s2i_tpu_torch.utils import CheckpointManager, ScalarLogger
@@ -603,3 +607,90 @@ def run_inception_finetune(
         logger.close()
     print(f"run dir: {run_dir}")
     return run_dir
+
+
+def run_port_gan(cfg, netg: str, netds: Iterable[str] = (), out: str = "ported",
+                 device: str | torch.device = "cuda") -> str:
+    """Reference ``netG.pth`` (and per-scale ``netD*.pth``, in any order)
+    → a step-0 GAN checkpoint ``<out>/0.pt`` beside ``<out>/ported_config.yml``
+    (``scripts/port_torch_gan.py``'s counterpart). The dims inferred from the
+    files override ``cfg`` (``GAN.GF_DIM``, ``GAN.Z_DIM``,
+    ``GAN.EMBEDDING_DIM``, ``TEXT.DIMENSION``, ``TREE.BRANCH_NUM``,
+    ``GAN.R_NUM``, and ``GAN.DF_DIM`` with netDs; ``TRAIN.JOINT_FT`` off):
+    the ported weights define the model. A scale with no netD keeps its
+    seeded D; the EMA, where ``TRAIN.EMA_G`` keeps one, starts at G's
+    weights. The state is built on ``device``. Returns ``out``."""
+    dev = resolve_device(device)
+    g_sd, meta = port_gnet(load_torch_state_dict(netg))
+    print(f"netG: {netg} -> {meta}")
+    cfg.GAN.GF_DIM, cfg.GAN.Z_DIM = meta["gf_dim"], meta["z_dim"]
+    cfg.GAN.EMBEDDING_DIM, cfg.TEXT.DIMENSION = meta["c_dim"], meta["t_dim"]
+    cfg.TREE.BRANCH_NUM = meta["branch_num"]
+    if meta["r_num"] is not None:
+        cfg.GAN.R_NUM = meta["r_num"]
+    cfg.TRAIN.JOINT_FT = False
+    scales = [64 * 2**i for i in range(int(cfg.TREE.BRANCH_NUM))]
+    ported_ds: dict[int, dict] = {}
+    for path in netds:
+        d_sd, dmeta = port_dnet(load_torch_state_dict(path))
+        print(f"netD: {path} -> {dmeta}")
+        if dmeta["ef_dim"] != meta["c_dim"]:
+            raise ValueError(f"{path}: condition dim {dmeta['ef_dim']} != netG's {meta['c_dim']}")
+        if dmeta["scale"] in ported_ds:
+            raise ValueError(f"duplicate netD for scale {dmeta['scale']}")
+        if dmeta["scale"] not in scales:
+            raise ValueError(f"netD{dmeta['scale']} has no slot at BRANCH_NUM={cfg.TREE.BRANCH_NUM}")
+        if ported_ds and dmeta["df_dim"] != int(cfg.GAN.DF_DIM):
+            raise ValueError(f"netDs disagree on df_dim: {int(cfg.GAN.DF_DIM)} and {dmeta['df_dim']}")
+        cfg.GAN.DF_DIM = dmeta["df_dim"]
+        ported_ds[dmeta["scale"]] = d_sd
+
+    state = gan.init_state(cfg, dev)
+    m = state.models
+    m.g.load_state_dict(g_sd)
+    for scale, d in zip(scales, m.ds):
+        if scale in ported_ds:
+            d.load_state_dict(ported_ds[scale])
+    with torch.no_grad():
+        for name, p in m.g.named_parameters():
+            if name in state.ema:
+                state.ema[name].copy_(p)
+    CheckpointManager(out).save(0, state, force=True)
+    cfg_path = os.path.join(out, "ported_config.yml")
+    config.dump_cfg(cfg, cfg_path)
+    missing = [s for s in scales if s not in ported_ds]
+    note = f" (seeded Ds at scales {missing}; fine for sampling)" if missing else ""
+    print(f"ported checkpoint written to {out} at step 0{note}")
+    print(f"sample: python -m s2i_tpu_torch sample --cfg {cfg_path} --set TRAIN.NET_G={out}")
+    return out
+
+
+def run_export_gan(ckpt: str, out: str, raw: bool = False) -> dict[str, str]:
+    """The latest GAN checkpoint of ``ckpt`` (a port run's ``<run>/ckpt``,
+    frozen or joint) → reference ``netG.pth`` and ``netD{64,128,256}.pth``
+    in ``out`` (``scripts/export_torch_gan.py``'s counterpart): G with its
+    EMA weights over it, as ``SpeechToImage.from_checkpoints`` serves it, or
+    the raw G with ``raw`` or when the run kept no EMA; a joint checkpoint's
+    encoder is not exported. Returns the paths written, by file name."""
+    if not os.path.isdir(ckpt):
+        raise FileNotFoundError(f"no checkpoint directory {ckpt}")
+    restored = CheckpointManager(ckpt).restore_latest_raw()
+    if restored is None:
+        raise FileNotFoundError(f"no checkpoint in {ckpt}")
+    sd, step = restored
+    if not {"g", "ds", "ema"} <= set(sd):
+        raise ValueError(f"{ckpt}: not a GAN checkpoint (fields {sorted(sd)})")
+    g_sd = dict(sd["g"])
+    which = "raw" if raw or not sd["ema"] else "ema"
+    if which == "ema":
+        g_sd.update(sd["ema"])
+    os.makedirs(out, exist_ok=True)
+    files = {"netG.pth": export_gnet(g_sd)}
+    files.update({f"netD{64 * 2**i}.pth": export_dnet(d_sd) for i, d_sd in enumerate(sd["ds"])})
+    written = {}
+    for name, tensors in files.items():
+        written[name] = os.path.join(out, name)
+        torch.save(tensors, written[name])
+        what = f"({which}, step {step}, " if name == "netG.pth" else "("
+        print(f"{name[:-4]} {what}{len(tensors)} tensors) -> {written[name]}")
+    return written

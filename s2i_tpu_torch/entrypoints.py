@@ -1,11 +1,12 @@
 """The port's entry points: console scripts (``pyproject.toml``:
 ``s2i-torch-train``, ``s2i-torch-sample``, ``s2i-torch-pretrain-encoder``,
 ``s2i-torch-finetune-inception``, ``s2i-torch-eval``, ``s2i-torch-export``,
-``s2i-torch-serve``, ``s2i-torch-speech-to-image``) and ``python -m
-s2i_tpu_torch``, the counterparts of ``main.py``, ``s2i_tpu/entrypoints.py``,
-``scripts/pretrain_encoder.py``, ``scripts/finetune_inception.py``,
-``scripts/eval.py``, ``scripts/export.py``, ``scripts/serve.py`` and
-``scripts/speech_to_image.py``:
+``s2i-torch-serve``, ``s2i-torch-speech-to-image``, ``s2i-torch-port-gan``,
+``s2i-torch-export-gan``) and ``python -m s2i_tpu_torch``, the counterparts
+of ``main.py``, ``s2i_tpu/entrypoints.py``, ``scripts/pretrain_encoder.py``,
+``scripts/finetune_inception.py``, ``scripts/eval.py``, ``scripts/export.py``,
+``scripts/serve.py``, ``scripts/speech_to_image.py``,
+``scripts/port_torch_gan.py`` and ``scripts/export_torch_gan.py``:
 
     python -m s2i_tpu_torch --cfg cfg/birds_3stages.yml        # TRAIN.FLAG: train, else sample
     python -m s2i_tpu_torch train --cfg cfg/birds_joint_ft.yml --set TRAIN.NET_E=<run>/ckpt
@@ -18,8 +19,10 @@ s2i_tpu_torch``, the counterparts of ``main.py``, ``s2i_tpu/entrypoints.py``,
     python -m s2i_tpu_torch export --cfg cfg/birds_joint_ft.yml --gan_ckpt <run>/ckpt --out <dir> --batches 1,8
     python -m s2i_tpu_torch serve --artifact <dir> --port 8500       # or --cfg ... --gan_ckpt <run>/ckpt
     python -m s2i_tpu_torch speech-to-image --cfg ... --gan_ckpt <run>/ckpt --wav a.wav b.wav --out_dir <dir>
+    python -m s2i_tpu_torch port-torch-gan --netg netG.pth [--netd netD64.pth ...] --out <dir>
+    python -m s2i_tpu_torch export-torch-gan --ckpt <run>/ckpt --out <dir> [--raw]
 
-Every command but ``eval`` takes ``--cfg --data_dir --output_dir
+Every command but ``eval`` and ``export-torch-gan`` takes ``--cfg --data_dir --output_dir
 --manualSeed --gpu --set KEY=VAL ...``; every command runs on the card
 (``--gpu N``: ``cuda:N``), and ``--device cpu`` runs the kernels' plain
 PyTorch versions on the CPU. Without a card and without ``--device cpu`` a
@@ -39,7 +42,7 @@ from s2i_tpu_torch.pipeline import SpeechToImage
 from s2i_tpu_torch.serving import make_server
 
 COMMANDS = ("train", "sample", "pretrain-encoder", "finetune-inception", "eval", "export", "serve",
-            "speech-to-image")
+            "speech-to-image", "port-torch-gan", "export-torch-gan")
 
 
 def train_gan(argv: list[str] | None = None) -> dict:
@@ -213,14 +216,47 @@ def speech_to_image(argv: list[str] | None = None) -> list[str]:
     return outs
 
 
+def port_gan(argv: list[str] | None = None) -> str:
+    """Reference ``netG.pth`` / ``netD*.pth`` files → a step-0 port GAN
+    checkpoint and its ``ported_config.yml`` (``scripts/port_torch_gan.py``);
+    returns the output directory. Then ``sample --cfg <out>/ported_config.yml
+    --set TRAIN.NET_G=<out>`` samples from it, ``train --set TRAIN.NET_G=<out>``
+    warm-starts from it and ``SpeechToImage.from_checkpoints(cfg, enc, <out>)``
+    serves it."""
+    p = cli.base_parser("Port reference StackGAN-v2 netG.pth / netD*.pth files into a port GAN checkpoint")
+    p.add_argument("--netg", required=True, help="reference netG .pth")
+    p.add_argument("--netd", nargs="*", default=[], help="per-scale netD .pth files (any order; scale inferred)")
+    p.add_argument("--out", required=True, help="output checkpoint directory (created)")
+    args = p.parse_args(argv)
+    device = cli.resolve_args_device(args)
+    return cli.run_port_gan(cli.resolve_cfg(args), args.netg, args.netd, args.out, device=device)
+
+
+def export_gan(argv: list[str] | None = None) -> dict[str, str]:
+    """A port GAN checkpoint → reference ``netG.pth`` and ``netD*.pth``
+    (``scripts/export_torch_gan.py``); returns the paths by file name. The
+    export is host work, but the command resolves its device as every
+    command does: without a card it needs ``--device cpu``."""
+    p = argparse.ArgumentParser(description="Export a port GAN checkpoint to reference netG.pth / netD*.pth files")
+    p.add_argument("--ckpt", required=True, help="the GAN run's ckpt dir (its latest checkpoint)")
+    p.add_argument("--out", required=True, help="output directory (created)")
+    p.add_argument("--raw", action="store_true", help="the raw trained G instead of its EMA (Polyak) copy")
+    cli.add_device_flags(p)
+    args = p.parse_args(argv)
+    cli.resolve_args_device(args)
+    return cli.run_export_gan(args.ckpt, args.out, raw=args.raw)
+
+
 def main(argv: list[str] | None = None):
     """``python -m s2i_tpu_torch [train|sample|pretrain-encoder|finetune-inception|eval|export|serve|
-    speech-to-image] ...``; without a command it trains or samples as ``TRAIN.FLAG`` says."""
+    speech-to-image|port-torch-gan|export-torch-gan] ...``; without a command it trains or samples as
+    ``TRAIN.FLAG`` says."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] in COMMANDS:
         run = {"train": train_gan, "sample": sample, "pretrain-encoder": pretrain_encoder,
                "finetune-inception": finetune_inception, "eval": evaluate, "export": export, "serve": serve,
-               "speech-to-image": speech_to_image}[argv[0]]
+               "speech-to-image": speech_to_image, "port-torch-gan": port_gan,
+               "export-torch-gan": export_gan}[argv[0]]
         return run(argv[1:])
     args = cli.base_parser(__doc__).parse_args(argv)
     cfg = cli.resolve_cfg(args)

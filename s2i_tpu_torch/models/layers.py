@@ -68,10 +68,12 @@ class GLU(nn.Module):
 class LeakyReLU(nn.LeakyReLU):
     """``nn.LeakyReLU`` whose slope is ``negative_slope`` rounded to
     ``dtype``: in the JAX package ``leaky_relu(x, 0.2)`` of a bfloat16 ``x``
-    multiplies by the bfloat16 constant 0.2001953125."""
+    multiplies by the bfloat16 constant 0.2001953125. The rounding runs on
+    the CPU whatever the default device (a module built on the meta device
+    has no values to read)."""
 
     def __init__(self, negative_slope: float = 0.2, dtype: torch.dtype = torch.float32):
-        super().__init__(torch.tensor(negative_slope, dtype=dtype).item())
+        super().__init__(torch.tensor(negative_slope, dtype=dtype, device="cpu").item())
 
 
 def _add_bias(y: torch.Tensor, bias: torch.Tensor | None, dim: int = 1) -> torch.Tensor:

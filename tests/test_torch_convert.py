@@ -7,7 +7,11 @@ moved off their init, so that each is seen), saved by the JAX package's
 Orbax ``CheckpointManager`` beside its ``config.yml``, are converted into
 port checkpoints. Those must hold every weight bitwise, serve through
 ``SpeechToImage.from_checkpoints`` bitwise as the source modules do, and
-warm-start a trainer. No JAX step is compiled."""
+warm-start a trainer. The Adam states hold seeded non-zero moments at step
+``STEP`` (float32, and ``TRAIN.MOMENT_DTYPE=bfloat16``'s two masked states):
+the port's ``exp_avg`` / ``exp_avg_sq`` / ``step`` must be the bridged moments
+bitwise, and one port Adam step from them must give the parameters of one
+eager optax update on the same gradients. No JAX step is compiled."""
 
 import os
 
@@ -21,6 +25,7 @@ from s2i_tpu import config as jax_config
 from s2i_tpu.eval.finetune import InceptionTrainState as JaxInceptionTrainState
 from s2i_tpu.train.encoder import EncoderTrainState
 from s2i_tpu.train.gan import GanTrainState
+from s2i_tpu.train.gan import _adam as jax_gan_optimizer
 from s2i_tpu.utils import CheckpointManager as OrbaxCheckpoints
 from s2i_tpu_torch import bridge, cli, config
 from s2i_tpu_torch.audio.frontend import frontend_params_from_cfg
@@ -38,6 +43,8 @@ TINY = [
     "ENCODER.CONV_CHANNELS=[8, 16]", "ENCODER.RNN_HIDDEN=16", "ENCODER.N_CLASSES=8",
 ]
 STEP = 7
+MIN_SIZE = 512  # TRAIN.MOMENT_DTYPE_MIN_SIZE: at these widths 14 G, 9 D and 4 encoder leaves are this large
+ATOL_STEP = 1e-6  # parameters after one port Adam step against one optax update, float32
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -73,22 +80,39 @@ def save_jax_run(run: str, state, step: int, jax_cfg) -> None:
     jax_config.dump_cfg(jax_cfg, os.path.join(run, "config.yml"))
 
 
-def jax_encoder_run(run: str, cfg, jax_cfg) -> dict:
-    """A JAX encoder pretraining run from the port's seeded encoder; returns
-    the encoder's state dict."""
+def seeded_adam(opt_state, seed: int):
+    """``opt_state`` (optax, possibly masked) with every Adam state's count
+    at STEP and its moments seeded non-zero in their own types (``nu``
+    positive), drawn in numpy: no JAX op is compiled."""
+    rng = np.random.default_rng(seed)
+    draw = lambda x, f: (f(rng.standard_normal(x.shape)) * 0.1).astype(x.dtype)  # noqa: E731
+    if isinstance(opt_state, optax.ScaleByAdamState):
+        return opt_state._replace(count=np.int32(STEP), mu=jax.tree.map(lambda x: draw(x, lambda a: a), opt_state.mu),
+                                  nu=jax.tree.map(lambda x: draw(x, np.abs), opt_state.nu))
+    if isinstance(opt_state, optax.MaskedState):
+        return opt_state._replace(inner_state=seeded_adam(opt_state.inner_state, seed))
+    if isinstance(opt_state, tuple) and not hasattr(opt_state, "_fields"):
+        return tuple(seeded_adam(s, seed + i) for i, s in enumerate(opt_state))
+    return opt_state
+
+
+def jax_encoder_run(run: str, cfg, jax_cfg) -> tuple[dict, EncoderTrainState]:
+    """A JAX encoder pretraining run from the port's seeded encoder, with
+    seeded Adam moments; returns the encoder's state dict and the state."""
     src = init_encoder_state(cfg, device="cpu").model
     sd = moved(src, torch.Generator().manual_seed(1))
     trees = bridge.encoder_trees(sd)
     state = EncoderTrainState(step=np.int32(STEP), params=trees["params"], batch_stats=trees["batch_stats"],
-                              opt=optax.adam(1e-3).init(trees["params"]))
+                              opt=seeded_adam(optax.adam(1e-3).init(trees["params"]), 4))
     save_jax_run(run, state, STEP, jax_cfg)
-    return sd
+    return sd, state
 
 
-def jax_gan_run(run: str, cfg, jax_cfg) -> dict:
+def jax_gan_run(run: str, cfg, jax_cfg) -> tuple[dict, GanTrainState]:
     """A JAX GAN run (joint when the cfg says so) from the port's seeded
-    state, its EMA apart from the raw weights; returns the source's state
-    dicts as numpy: g, ds, enc (or None), ema."""
+    state, its EMA apart from the raw weights, the JAX package's optimizers
+    (``TRAIN.MOMENT_DTYPE``'s) with seeded moments; returns the source's
+    state dicts as numpy (g, ds, enc or None, ema) and the JAX state."""
     st = gan.init_state(cfg, device="cpu")
     gen = torch.Generator().manual_seed(2)
     m = st.models
@@ -101,19 +125,85 @@ def jax_gan_run(run: str, cfg, jax_cfg) -> dict:
         enc = bridge.encoder_trees(src["enc"])
         g_params["enc"], g_stats["enc"] = enc["params"], enc["batch_stats"]
     d_trees = [bridge.dnet_trees(sd) for sd in src["ds"]]
-    adam = optax.adam(2e-4)
+    g_tx, d_tx = (jax_gan_optimizer(jax_cfg, float(lr)) for lr in (cfg.TRAIN.GENERATOR_LR, cfg.TRAIN.DISCRIMINATOR_LR))
     state = GanTrainState(
-        step=np.int32(STEP), g_params=g_params, g_stats=g_stats, g_opt=adam.init(g_params),
+        step=np.int32(STEP), g_params=g_params, g_stats=g_stats, g_opt=seeded_adam(g_tx.init(g_params), 10),
         d_params=tuple(p for p, _ in d_trees), d_stats=tuple(s for _, s in d_trees),
-        d_opt=tuple(adam.init(p) for p, _ in d_trees), ema_g=ema_g)
+        d_opt=tuple(seeded_adam(d_tx.init(p), 20 + i) for i, (p, _) in enumerate(d_trees)), ema_g=ema_g)
     save_jax_run(run, state, STEP, jax_cfg)
-    return src
+    return src, state
 
 
 def assert_same(got: dict, want: dict) -> None:
     assert got.keys() == want.keys()
     for k, v in want.items():
         assert torch.equal(got[k], torch.from_numpy(v)), k
+
+
+def moments(opt: optax.OptState) -> dict:
+    """{"mu", "nu"} trees of an optax state, the masked halves merged."""
+    states = [s for s in jax.tree.leaves(opt, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+              if isinstance(s, optax.ScaleByAdamState)]
+    leaf = lambda *xs: next(x for x in xs if not isinstance(x, optax.MaskedNode))  # noqa: E731
+    masked = lambda x: isinstance(x, optax.MaskedNode)  # noqa: E731
+    return {k: jax.tree.map(leaf, *(getattr(s, k) for s in states), is_leaf=masked) for k in ("mu", "nu")}
+
+
+def gan_named(tree: dict, g_stats: dict, joint: bool) -> dict:
+    """A tree of G's optimizer group → the port's ``g_opt_names`` names."""
+    out = {f"g.{k}": v for k, v in bridge.gnet_state_dict({"ca": tree["ca"], "g": tree["g"]}, g_stats).items()}
+    if joint:
+        out.update({f"enc.{k}": v for k, v in
+                    bridge.encoder_state_dict({"params": tree["enc"], "batch_stats": g_stats["enc"]}).items()})
+    return out
+
+
+def opt_groups(jax_state, models) -> list:
+    """(optax state, port parameter names in optimizer order, tree → named
+    arrays) for G's optimizer and each D's."""
+    joint = "enc" in jax_state.g_params
+    groups = [(jax_state.g_opt, gan.g_opt_names(models), lambda t: gan_named(t, jax_state.g_stats, joint))]
+    for opt, d, stats in zip(jax_state.d_opt, models.ds, jax_state.d_stats):
+        groups.append((opt, [n for n, _ in d.named_parameters()], lambda t, s=stats: bridge.dnet_state_dict(t, s)))
+    return groups
+
+
+def padded(tree, params):
+    """``tree`` (parameters, gradients or an optax state over ``params``)
+    with each array raveled and zero-padded to the largest size of its
+    moment-dtype class (``MIN_SIZE`` and over, or under), 0-d counts as they
+    are. Adam works element by element and the JAX package masks by size, so
+    an eager optax update of the padded trees gives the same values at the
+    same places while compiling each op for two shapes, not for every
+    leaf's (~5 s a run fewer)."""
+    sizes = [np.size(p) for p in jax.tree.leaves(params)]
+    length = {big: max((n for n in sizes if (n >= MIN_SIZE) == big), default=0) for big in (False, True)}
+
+    def pad(x):
+        x = np.asarray(x)
+        if x.ndim == 0:
+            return x
+        out = np.zeros(length[x.size >= MIN_SIZE], x.dtype)
+        out[: x.size] = x.ravel()
+        return out
+
+    return jax.tree.map(pad, tree)
+
+
+def assert_moments_carried(opt_sd: dict, jax_opt, names: list[str], named, big: int | None) -> None:
+    """The port optimizer state_dict's per-parameter Adam state is the
+    bridged optax moments bitwise, in bfloat16 for leaves of at least
+    ``big`` elements (else float32), at step STEP."""
+    want = {k: named(v) for k, v in moments(jax_opt).items()}
+    assert sorted(opt_sd["state"]) == list(range(len(names)))
+    for i, name in enumerate(names):
+        st = opt_sd["state"][i]
+        assert float(st["step"]) == STEP, name
+        for key, k in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
+            t = st[key]
+            cast = big is not None and t.numel() >= big
+            assert t.dtype == (torch.bfloat16 if cast else torch.float32), (name, key)
+            assert torch.equal(t.float(), torch.from_numpy(want[k][name])), (name, key)
 
 
 def wavs(cfg):
@@ -126,28 +216,35 @@ def wavs(cfg):
 def test_converted_checkpoints_serve_and_warm_start_as_their_source(tmp_path, mode, capsys):
     joint = mode == "joint"
     cfg, jax_cfg = cfgs(f"TRAIN.JOINT_FT={str(joint).lower()}")
-    src = jax_gan_run(str(tmp_path / "jax_gan"), cfg, jax_cfg)
+    src, jax_state = jax_gan_run(str(tmp_path / "jax_gan"), cfg, jax_cfg)
     orbax_to_torch.main([str(tmp_path / "jax_gan"), str(tmp_path / "port_gan")])
-    assert "warm start" in capsys.readouterr().out
+    assert orbax_to_torch.EXACT_NOTE in capsys.readouterr().out
     raw, step = CheckpointManager(str(tmp_path / "port_gan" / "ckpt")).restore_latest_raw()
     assert step == STEP and raw["step"] == STEP
     assert_same(raw["g"], src["g"])
     for got, want in zip(raw["ds"], src["ds"]):
         assert_same(got, want)
     assert_same(raw["ema"], src["ema"])
-    assert raw["g_opt"]["state"] == {}  # Adam moments are not converted
+    # Adam's moments and steps, bridged as the weights
+    opt_sds = [raw["g_opt"], *raw["d_opts"]]
+    for opt_sd, (jax_opt, names, named) in zip(opt_sds, opt_groups(jax_state, gan.init_state(cfg, "cpu").models)):
+        assert_moments_carried(opt_sd, jax_opt, names, named, None)
     enc_ckpt = None
     if joint:
         assert_same(raw["enc"], src["enc"])
         enc_sd = src["enc"]
     else:
         assert raw["enc"] is None
-        enc_sd = jax_encoder_run(str(tmp_path / "jax_enc"), cfg, jax_cfg)
+        enc_sd, jax_enc = jax_encoder_run(str(tmp_path / "jax_enc"), cfg, jax_cfg)
         orbax_to_torch.main([str(tmp_path / "jax_enc" / "ckpt"), str(tmp_path / "port_enc"),
                              "--cfg", str(tmp_path / "jax_enc" / "config.yml")])
+        assert orbax_to_torch.EXACT_NOTE in capsys.readouterr().out
         enc_raw, _ = CheckpointManager(str(tmp_path / "port_enc" / "ckpt")).restore_latest_raw()
-        assert enc_raw["step"] == STEP and enc_raw["opt"]["state"] == {}
+        assert enc_raw["step"] == STEP
         assert_same(enc_raw["model"], enc_sd)
+        names = [n for n, _ in init_encoder_state(cfg, device="cpu").model.named_parameters()]
+        assert_moments_carried(enc_raw["opt"], jax_enc.opt, names, lambda t: bridge.encoder_state_dict(
+            {"params": t, "batch_stats": jax_enc.batch_stats}), None)
         enc_ckpt = str(tmp_path / "port_enc" / "ckpt")
 
     served = SpeechToImage.from_checkpoints(cfg, enc_ckpt, str(tmp_path / "port_gan" / "ckpt"), device="cpu")
@@ -169,6 +266,49 @@ def test_converter_refuses_a_mismatched_config(tmp_path):
         orbax_to_torch.main([str(tmp_path / "jax"), str(tmp_path / "port"), "--set", "TRAIN.JOINT_FT=false"])
     with pytest.raises(ValueError, match="Ds"):
         orbax_to_torch.main([str(tmp_path / "jax"), str(tmp_path / "port"), "--set", "TREE.BRANCH_NUM=1"])
+    with pytest.raises(ValueError, match="g_opt: the checkpoint has an Adam state; the config's optimizer is SGD"):
+        orbax_to_torch.main([str(tmp_path / "jax"), str(tmp_path / "port"), "--set", "TRAIN.OPTIMIZER=sgd"])
+
+
+@pytest.mark.parametrize("mode, moment_dtype", [("frozen", "float32"), ("joint", "bfloat16")])
+def test_converted_adam_state_steps_as_optax(tmp_path, mode, moment_dtype, capsys):
+    """The converted moments of every optimizer, bitwise (bfloat16 kept for
+    the large leaves), and one port Adam step of each optimizer (G's group:
+    CA, G and in joint mode the encoder, every permutation the bridge makes;
+    each D's) from the converted checkpoint against one eager optax update of
+    the JAX package's optimizer on the same seeded gradients: the resume is
+    exact."""
+    cfg, jax_cfg = cfgs(f"TRAIN.JOINT_FT={str(mode == 'joint').lower()}", f"TRAIN.MOMENT_DTYPE={moment_dtype}",
+                        f"TRAIN.MOMENT_DTYPE_MIN_SIZE={MIN_SIZE}")
+    _, jax_state = jax_gan_run(str(tmp_path / "jax"), cfg, jax_cfg)
+    orbax_to_torch.main([str(tmp_path / "jax"), str(tmp_path / "port")])
+    assert orbax_to_torch.EXACT_NOTE in capsys.readouterr().out
+    raw, _ = CheckpointManager(str(tmp_path / "port" / "ckpt")).restore_latest_raw()
+    state = gan.init_state(cfg, device="cpu")
+    state.load_state_dict(raw)
+    big = MIN_SIZE if moment_dtype == "bfloat16" else None
+    assert isinstance(state.g_opt, gan.CastMomentAdam) == (big is not None)
+    opts = [state.g_opt, *state.d_opts]
+    jax_params = [jax_state.g_params, *jax_state.d_params]
+    txs = [jax_gan_optimizer(jax_cfg, float(cfg.TRAIN.GENERATOR_LR))]
+    txs += [jax_gan_optimizer(jax_cfg, float(cfg.TRAIN.DISCRIMINATOR_LR))] * len(state.d_opts)
+    n_cast = 0
+    rng = np.random.default_rng(9)
+    for opt, params, tx, (jax_opt, names, named) in zip(opts, jax_params, txs, opt_groups(jax_state, state.models)):
+        assert_moments_carried(opt.state_dict(), jax_opt, names, named, big)
+        n_cast += sum(p.numel() >= MIN_SIZE for p in opt.param_groups[0]["params"])
+        grads = jax.tree.map(lambda p: rng.standard_normal(p.shape).astype(np.float32), params)
+        port_grads = named(grads)
+        port_params = opt.param_groups[0]["params"]
+        for name, p in zip(names, port_params):
+            p.grad = torch.from_numpy(port_grads[name])
+        opt.step()
+        flat = lambda tree: padded(tree, params)  # noqa: E731
+        new = optax.apply_updates(flat(params), tx.update(flat(grads), flat(jax_opt), flat(params))[0])
+        want = named(jax.tree.map(lambda x, p: np.asarray(x)[: p.size].reshape(p.shape), new, params))
+        for name, p in zip(names, port_params):
+            np.testing.assert_allclose(p.detach().numpy(), want[name], atol=ATOL_STEP, rtol=0, err_msg=name)
+    assert n_cast > 0  # some leaves' moments are bfloat16 under that moment dtype
 
 
 def test_converted_inception_run_is_what_eval_scores_with(tmp_path, capsys):

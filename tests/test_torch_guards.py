@@ -76,6 +76,7 @@ def test_port_imports_with_jax_blocked():
         "import s2i_tpu_torch.train.gan, s2i_tpu_torch.models.discriminator\n"
         "import s2i_tpu_torch.train.loop, s2i_tpu_torch.utils.checkpoint\n"
         "import s2i_tpu_torch.eval, s2i_tpu_torch.eval.finetune, s2i_tpu_torch.eval.weights\n"
+        "import s2i_tpu_torch.port, s2i_tpu_torch.entrypoints\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
@@ -103,14 +104,16 @@ def test_entry_points_need_a_card_unless_told_cpu():
     cpu_pipe = SpeechToImage(cfg, enc, g, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_server(cpu_pipe, port=0, warmup=False)
-    # the evaluation commands and their modules (nothing is read before the device is resolved)
+    # the evaluation and checkpoint commands and their modules (nothing is read before the device is resolved)
     from s2i_tpu_torch import entrypoints
     from s2i_tpu_torch.eval import InceptionFeatures, retrieval_metrics
     from s2i_tpu_torch.eval.finetune import init_inception_state
 
     for argv in (["eval", "--gen_dir", "no_such_dir"], ["eval", "--retrieval", "no_such.pickle", "no_such.pickle"],
                  ["eval", "--gen_dir", "no_such_dir", "--gpu", "0"],
-                 ["finetune-inception", "--cfg", "cfg/birds_3stages.yml", "--data_dir", "no_such_dir"]):
+                 ["finetune-inception", "--cfg", "cfg/birds_3stages.yml", "--data_dir", "no_such_dir"],
+                 ["port-torch-gan", "--netg", "no_such.pth", "--out", "no_such_dir"],
+                 ["export-torch-gan", "--ckpt", "no_such_dir", "--out", "no_such_dir"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entrypoints.main(argv)
     with pytest.raises(RuntimeError, match="no CUDA device"):
