@@ -49,6 +49,21 @@ Phases, each of which passes or raises (nothing is caught):
   8. joint   - the same for cfg/birds_joint_ft.yml: the speech encoder in
                G's optimizer group on ragged synthetic WAVs, featurized per
                step (K1), its recurrence through K2 forward and K3 backward;
+  8b. ddp    - data parallelism (s2i_tpu_torch/parallel/) on
+               cfg/birds_3stages.yml at full width in float32, global batch
+               24, ranks spawned as torchrun would (this script with
+               --ddp-rank SPEC): (a) NCCL over every visible card (at most
+               4; one on a one-card machine), the first step bitwise the
+               one-process step on the same global batch when that repeats
+               bitwise (cuDNN deterministic), then the step time beside the
+               gan phase's one-process median, a pmean's host µs, and a
+               GanTrainer that saves a step and resumes from it on every
+               rank (Adam's host-side step counts replicated over the gloo
+               group); (b) 2 gloo ranks sharing the
+               card, 12 rows each: the first GAN and joint steps against the
+               one-process steps with the GAN step's gates, parameters and
+               buffers bitwise equal across the ranks, K1, K2 and K3 once
+               per rank in the joint step, gloo step times as a check;
   9. bf16    - the cfgs' own compute type, bfloat16 (phases 4, 5, 7, 8 set
                DTYPE.COMPUTE float32 against it, as their gates are
                float32's): a dtype audit of a joint step (G's and the Ds'
@@ -143,14 +158,18 @@ names it, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
+import hashlib
 import io
 import itertools
 import json
 import math
 import os
+import pickle
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -163,7 +182,7 @@ import scipy.linalg
 import torch
 from PIL import Image
 
-from s2i_tpu_torch import cli, config, entrypoints, native
+from s2i_tpu_torch import cli, config, entrypoints, native, parallel
 from s2i_tpu_torch import export as s2i_export
 from s2i_tpu_torch.audio import filters
 from s2i_tpu_torch.audio.frontend import (
@@ -332,10 +351,11 @@ def time_ms(fn, reps: int = 20, warmup: int = 3, queued: bool = False) -> float:
     return start.elapsed_time(end) / reps
 
 
-def timed_steps(step, n: int) -> tuple[list[float], float, object]:
-    """Host ms of ``n`` synchronized calls of ``step`` after 2 of warm-up,
-    the peak device memory (MiB) over them and the last call's result."""
-    for _ in range(2):
+def timed_steps(step, n: int, warmup: int = 2) -> tuple[list[float], float, object]:
+    """Host ms of ``n`` synchronized calls of ``step`` after ``warmup`` of
+    warm-up, the peak device memory (MiB) over them and the last call's
+    result."""
+    for _ in range(warmup):
         step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1059,6 +1079,13 @@ def phase_mel_ab(card: str) -> dict[str, int]:
     return launches
 
 
+DDP_CASES = {"gan": "cfg/birds_3stages.yml", "joint": "cfg/birds_joint_ft.yml"}
+DDP_MAX_CARDS = 4  # the NCCL part's ranks: every visible card, at most this many
+DDP_STEP_RUNS = 10  # timed steps of the NCCL part, after 2 of warm-up (as GAN_STEP_RUNS)
+DDP_GLOO_RUNS = 2  # timed steps of each gloo case after its first (no more warm-up): a check, not a rate
+DDP_TIMEOUT_S = 400  # a rank's collectives, and the wait for its process
+
+
 def gan_cfg(path: str, batch: int, compute: str | None = None):
     """``path`` on synthetic data at ``batch``; ``compute`` replaces the
     cfg's DTYPE.COMPUTE when given."""
@@ -1093,15 +1120,20 @@ def first_step(cfg, raw: dict, z: np.ndarray, eps: np.ndarray, dev: str) -> tupl
     the CPU, keyed by network."""
     st = gan.init_state(cfg, device=dev)
     batch = cli.featurize(raw, frontend_params_from_cfg(cfg.AUDIO), dev) if cfg.TRAIN.JOINT_FT else raw
-    mets = {k: float(v) for k, v in gan.train_step(st, batch, z, eps).items()}
-    rec = {"mets": mets, "grads": {}, "stats": {}}
+    return st, step_record(st, gan.train_step(st, batch, z, eps))
+
+
+def step_record(st: gan.GanTrainState, mets: dict) -> dict:
+    """The step's metrics, every gradient and every BN running statistic of
+    ``st`` on the CPU, keyed by network."""
+    rec = {"mets": {k: float(v) for k, v in mets.items()}, "grads": {}, "stats": {}}
     for part, mod in step_modules(st).items():
         for name, prm in mod.named_parameters():
             rec["grads"][f"{part}.{name}"] = None if prm.grad is None else prm.grad.detach().cpu()
         for k, v in mod.state_dict().items():
             if "running" in k:
                 rec["stats"][f"{part}.{k}"] = v.detach().cpu()
-    return st, rec
+    return rec
 
 
 def step_errors(got: dict, want: dict) -> dict:
@@ -1245,6 +1277,310 @@ def phase_gan(card: str, path: str) -> dict[str, int]:
         + f" sum {sum(med.values()):.3f}; max_memory_allocated {peak:.0f} MiB; g_loss after {st.step} steps "
         f"{float(m['g_loss']):.4f}")
     return launches
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms, without autotuning, for the block."""
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+def ddp_first_step(cfg, st: gan.GanTrainState, raw: dict, dev: torch.device) -> tuple[dict, dict[str, int]]:
+    """A step of ``st`` on this rank's rows of the global batch ``raw`` over
+    ``st.axis`` (None: the whole batch in one process), with the step's own
+    noise: (record, kernel launches)."""
+    rows = parallel.shard_batch(raw, st.axis)
+    reset_counts()
+    batch = cli.featurize(rows, frontend_params_from_cfg(cfg.AUDIO), dev) if cfg.TRAIN.JOINT_FT else rows
+    rec = step_record(st, gan.train_step(st, batch))
+    torch.cuda.synchronize()
+    return rec, read_counts()
+
+
+def state_digest(st: gan.GanTrainState) -> str:
+    """SHA-256 of every parameter and buffer of the state's networks."""
+    h = hashlib.sha256()
+    for mod in step_modules(st).values():
+        for t in itertools.chain(mod.parameters(), mod.buffers()):
+            h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def records_equal(a: dict, b: dict) -> bool:
+    """Bitwise equality of two step records."""
+    return a["mets"] == b["mets"] and all(
+        (x is None and b[k][n] is None) or (x is not None and b[k][n] is not None and torch.equal(x, b[k][n]))
+        for k in ("grads", "stats") for n, x in a[k].items())
+
+
+def ddp_trainer_resume(axis: parallel.DataAxis, dev: torch.device, out: str) -> dict:
+    """``GanTrainer`` over the axis on the gan case's batch (the cfg's Adam,
+    whose step counts live on the host): one step and a checkpoint, then a
+    new trainer in the same directory restores it on every rank, replicates
+    it (a card's tensors over the joined group, the host's over the gloo
+    one) and takes a second step. Returns the digests saved and restored,
+    the steps, where the Adam step counts live and whether the metrics are
+    finite."""
+    cfg = gan_cfg(DDP_CASES["gan"], GAN_BATCH, "float32")
+    with open(os.path.join(out, "gan.batch.pkl"), "rb") as f:
+        raw = pickle.load(f)
+    factory = cli.gan_batch_factory(cfg, lambda epoch: iter([raw, raw]), axis)
+    run_dir = os.path.join(out, "trainer")
+
+    def trainer() -> GanTrainer:
+        return GanTrainer(cfg, run_dir, factory, log_every=0, image_every=0, device=dev, mesh=axis)
+
+    t = trainer()
+    try:
+        t.train(max_steps=1)
+        res = {"saved": state_digest(t.state)}
+    finally:
+        t.close()
+    del t
+    gc.collect()
+    t = trainer()  # restores step 1 on every rank and replicates it
+    try:
+        res.update(restored=state_digest(t.state), restored_step=t.state.step,
+                   adam_step_devices=sorted({str(s["step"].device) for s in t.state.g_opt.state.values()}))
+        mets = t.train(max_steps=2)
+        res.update(step=t.state.step, finite=all(np.isfinite(v) for v in mets.values()))
+    finally:
+        t.close()
+    del t
+    gc.collect()
+    return res
+
+
+def pmean_host_us(axis: parallel.DataAxis, dev: torch.device, n: int = 200) -> float:
+    """Host µs a ``DataAxis.pmean`` of a BatchNorm's [2, 512] statistics
+    takes to queue, after 10 of warm-up."""
+    x = torch.zeros(2, 512, device=dev)
+    for _ in range(10):
+        axis.pmean(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        axis.pmean(x)
+    us = 1e6 * (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return us
+
+
+def ddp_rank(spec_path: str) -> None:
+    """One rank of the ddp phase (``chip_smoke.py --ddp-rank SPEC``, with
+    torchrun's variables set by :func:`run_ranks`): joins the process group
+    of the spec's backend (NCCL, one card per rank; gloo, every rank on
+    cuda:0), runs the first step of each case on its rows of the global batch
+    the parent saved, with cuDNN deterministic, and writes rank 0's record,
+    then times the spec's runs of steps (cuDNN as the gan phase has it) and
+    writes a JSON of its launches, state digest and times. NCCL ranks then
+    time a pmean on the host and save and resume a ``GanTrainer``
+    (:func:`ddp_trainer_resume`)."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    backend, out = spec["backend"], spec["out"]
+    dev = "cuda" if backend == "nccl" else "cuda:0"
+    parallel.maybe_initialize_distributed(dev, backend=backend, timeout_s=DDP_TIMEOUT_S)
+    try:
+        dev = resolve_device(parallel.local_device(dev))
+        axis = parallel.make_mesh()
+        res = {"rank": axis.rank, "size": axis.size, "device": str(dev), "cases": {}}
+        for case in spec["cases"]:
+            cfg = gan_cfg(DDP_CASES[case], GAN_BATCH, "float32")
+            with open(os.path.join(out, f"{case}.batch.pkl"), "rb") as f:
+                raw = pickle.load(f)
+            st = gan.init_state(cfg, dev, axis=axis)
+            with cudnn_deterministic():
+                rec, counts = ddp_first_step(cfg, st, raw, dev)
+            if axis.rank == 0:
+                torch.save(rec, os.path.join(out, f"{case}.{backend}.pt"))
+            p = frontend_params_from_cfg(cfg.AUDIO)
+            rows = parallel.shard_batch(raw, axis)
+            step = (lambda: gan.train_step(st, cli.featurize(rows, p, dev))) if cfg.TRAIN.JOINT_FT else \
+                (lambda: gan.train_step(st, rows))
+            times, peak, _ = timed_steps(step, spec["runs"], warmup=2 if backend == "nccl" else 0)
+            res["cases"][case] = {"launches": counts, "digest": state_digest(st), "times": times, "peak": peak}
+            del st
+            gc.collect()
+        if backend == "nccl":
+            res["pmean_us"] = pmean_host_us(axis, dev)
+            res["resume"] = ddp_trainer_resume(axis, dev, out)
+        with open(os.path.join(out, f"rank{axis.rank}.{backend}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        parallel.destroy()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(out: str, backend: str, world: int, cases: list[str], runs: int) -> list[dict]:
+    """Start ``world`` ranks of :func:`ddp_rank`, wait for them all within
+    DDP_TIMEOUT_S (killing every one that is left past it, or when one
+    fails) and return their JSON results, by rank."""
+    spec = os.path.join(out, f"spec.{backend}.json")
+    with open(spec, "w") as f:
+        json.dump({"backend": backend, "cases": cases, "runs": runs, "out": out}, f)
+    env = dict(os.environ, WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    procs, logs = [], [os.path.join(out, f"log{r}.{backend}.txt") for r in range(world)]
+    for r in range(world):
+        with open(logs[r], "w") as log_f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--ddp-rank", spec],
+                env=dict(env, RANK=str(r), LOCAL_RANK=str(r if backend == "nccl" else 0)),
+                stdout=log_f, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + DDP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        tails = "\n".join(f"--- rank {r} (exit {p.returncode}):\n" + open(logs[r]).read()[-4000:]
+                          for r, p in enumerate(procs))
+        raise AssertionError(f"{backend} ranks failed:\n{tails}")
+    results = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.{backend}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def check_step(got: dict, want: dict, what: str) -> str:
+    """``got``'s first-step record against ``want``'s with the GAN step's
+    gates (TOL_GAN_*); raises past them, returns what it read."""
+    e = step_errors(got, want)
+    if e["zero"]:
+        raise AssertionError(f"{what}: parameters with no gradient: {e['zero']}")
+    worst = {name: max(e[name], key=e[name].get) for name in ("loss", "net", "tensor", "stats")}
+    median = float(np.median(list(e["tensor"].values())))
+    msg = (f"worst loss rel err {e['loss'][worst['loss']]:.3g} ({worst['loss']}; tol {TOL_GAN_LOSS}); "
+           f"per network |diff|/|grad| " + " ".join(f"{k} {v:.3g}" for k, v in e["net"].items())
+           + f" (tol {TOL_GAN_GRAD_NET}), per tensor median {median:.3g} (tol {TOL_GAN_GRAD_MEDIAN}) worst "
+           f"{e['tensor'][worst['tensor']]:.3g} ({worst['tensor']}; tol {TOL_GAN_GRAD_TENSOR}); BN running stats "
+           f"worst {e['stats'][worst['stats']]:.3g} ({worst['stats']}; tol {TOL_GAN_STATS})")
+    if not (e["loss"][worst["loss"]] <= TOL_GAN_LOSS and e["net"][worst["net"]] <= TOL_GAN_GRAD_NET
+            and median <= TOL_GAN_GRAD_MEDIAN and e["tensor"][worst["tensor"]] <= TOL_GAN_GRAD_TENSOR
+            and e["stats"][worst["stats"]] <= TOL_GAN_STATS):
+        raise AssertionError(f"{what} disagrees: {msg}")
+    return msg
+
+
+def phase_ddp(card: str) -> dict[str, int]:
+    """Data-parallel GAN training (s2i_tpu_torch/parallel/) of
+    cfg/birds_3stages.yml at full width in float32, global batch GAN_BATCH,
+    ranks spawned as torchrun would (this script with --ddp-rank):
+    (a) NCCL over every visible card (at most DDP_MAX_CARDS): the first step
+        held against this process's one-process step on the same global
+        batch, bitwise when the one-process step repeats bitwise (cuDNN
+        deterministic), else within its repeat distance; then the step time
+        beside the gan phase's one-process median, a pmean's host µs, and a
+        GanTrainer saved after one step and resumed on every rank, bitwise;
+    (b) 2 gloo ranks sharing cuda:0, half the batch each: the first GAN and
+        joint (cfg/birds_joint_ft.yml) steps held against the one-process
+        steps with the GAN step's gates, parameters and buffers bitwise equal
+        across the ranks, K1, K2 and K3 once per rank in the joint step, and
+        gloo step times (through the host: a check that steps go on, not a
+        rate)."""
+    t0 = time.time()
+    os.makedirs("output", exist_ok=True)
+    out = tempfile.mkdtemp(prefix="chip_smoke_ddp_", dir="output")
+    dev = torch.device("cuda")
+    try:
+        refs = {}
+        with cudnn_deterministic():
+            for case, path in DDP_CASES.items():
+                cfg = gan_cfg(path, GAN_BATCH, "float32")
+                raw = next(iter(cli.synthetic_gan_batches(cfg)(0)))
+                with open(os.path.join(out, f"{case}.batch.pkl"), "wb") as f:
+                    pickle.dump(raw, f)
+                st = gan.init_state(cfg, dev)
+                init = to_host(st.state_dict())
+                refs[case] = ddp_first_step(cfg, st, raw, dev)[0]
+                if case == "gan":  # the same step again, from the same init
+                    st.load_state_dict(init)
+                    repeat = ddp_first_step(cfg, st, raw, dev)[0]
+                del st, init
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_refs = time.time() - t0
+        deterministic = records_equal(repeat, refs["gan"])
+        rep_net = step_errors(repeat, refs["gan"])["net"]
+        log(f"[ddp] one-process first GAN step at batch {GAN_BATCH} repeats "
+            f"{'bitwise' if deterministic else 'within per network ' + str(rep_net)} (cuDNN deterministic)")
+
+        world = min(torch.cuda.device_count(), DDP_MAX_CARDS)
+        t1 = time.time()
+        nccl = run_ranks(out, "nccl", world, ["gan"], DDP_STEP_RUNS)
+        t_nccl = time.time() - t1
+        got = torch.load(os.path.join(out, "gan.nccl.pt"), weights_only=False)
+        bitwise = records_equal(got, refs["gan"])
+        e = step_errors(got, refs["gan"])
+        log(f"[ddp] (a) NCCL, {world} rank(s) on {[r['device'] for r in nccl]}: first GAN step "
+            f"{'bitwise equal to' if bitwise else 'differs from'} the one-process step on the global batch "
+            f"(per network |diff|/|grad| " + " ".join(f"{k} {v:.3g}" for k, v in e["net"].items()) + ")")
+        if deterministic and not bitwise:
+            raise AssertionError("NCCL ranks: the first step is not bitwise the one-process step, which repeats bitwise")
+        if not deterministic and any(v > 2 * rep_net[k] for k, v in e["net"].items()):
+            raise AssertionError(f"NCCL ranks: the first step is further from the one-process step than its repeat: "
+                                 f"{e['net']} against {rep_net}")
+        if len({r["cases"]["gan"]["digest"] for r in nccl}) != 1:
+            raise AssertionError("NCCL ranks hold different parameters or buffers after the first step")
+        times = nccl[0]["cases"]["gan"]["times"]
+        med, one = float(np.median(times)), MADE_AHEAD_MS["gan"]
+        log(f"[ddp] (a) {card}: NCCL over {world} rank(s), global batch {GAN_BATCH}: step ms median {med:.2f} "
+            f"min {min(times):.2f} max {max(times):.2f} (n={len(times)}) beside the gan phase's one-process "
+            f"median {one:.2f} ({100 * (med / one - 1):+.1f}%), {GAN_BATCH / med * 1e3:.1f} images/s, "
+            f"max_memory_allocated {nccl[0]['cases']['gan']['peak']:.0f} MiB on rank 0; a pmean of [2, 512] "
+            f"{nccl[0]['pmean_us']:.1f} host us to queue")
+        for r in nccl:
+            res = r["resume"]
+            if not (res["restored"] == res["saved"] and res["restored_step"] == 1 and res["step"] == 2
+                    and res["finite"]):
+                raise AssertionError(f"NCCL rank {r['rank']}: GanTrainer save and resume failed: {res}")
+        log(f"[ddp] (a) GanTrainer over NCCL: 1 step, checkpoint, a new trainer restores it on every rank "
+            f"bitwise (Adam step counts on {nccl[0]['resume']['adam_step_devices']}, replicated over the host "
+            f"group) and takes step 2 with finite metrics")
+
+        t1 = time.time()
+        gloo = run_ranks(out, "gloo", 2, list(DDP_CASES), DDP_GLOO_RUNS)
+        t_gloo = time.time() - t1
+        launches = dict.fromkeys(KERNELS, 0)
+        for case in DDP_CASES:
+            msg = check_step(torch.load(os.path.join(out, f"{case}.gloo.pt"), weights_only=False), refs[case],
+                             f"2 gloo ranks, {case}")
+            if len({r["cases"][case]["digest"] for r in gloo}) != 1:
+                raise AssertionError(f"gloo ranks hold different parameters or buffers after the first {case} step")
+            per_rank = [r["cases"][case]["launches"] for r in gloo]
+            n = 1 if case == "joint" else 0
+            want = {"mel_fused": n, "gru_fwd": n, "gru_bwd": n, "mel_framed": 0}
+            if any(c != want for c in per_rank):
+                raise AssertionError(f"gloo {case} launches per rank {per_rank}, expected {want}")
+            for c in per_rank:
+                for k, v in c.items():
+                    launches[k] += v
+            gt = [t for r in gloo for t in r["cases"][case]["times"]]
+            log(f"[ddp] (b) 2 gloo ranks on cuda:0, {GAN_BATCH // 2} rows each, {case} first step vs one process: "
+                f"{msg}; parameters and buffers bitwise equal across the ranks; launches per rank {per_rank[0]}; "
+                f"{card}: gloo step ms {[round(t, 1) for t in gt]} (through the host: a check, not a rate)")
+        log(f"[ddp] the phase {time.time() - t0:.1f} s (one-process references {t_refs:.1f}, NCCL ranks "
+            f"{t_nccl:.1f}, gloo ranks {t_gloo:.1f}, process start and imports included); launches {launches}")
+        return launches
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
 
 
 def state_distance(a: dict, b: dict) -> float:
@@ -2393,6 +2729,7 @@ def main() -> None:
     card = f"{name} ({smi})"
     paths = {"serve": phase_serve(card), "train": phase_train(card), "mel_ab": phase_mel_ab(card),
              "gan": phase_gan(card, "cfg/birds_3stages.yml"), "joint": phase_gan(card, "cfg/birds_joint_ft.yml"),
+             "ddp": phase_ddp(card),
              "bf16": phase_bf16(card), "export": phase_export(card), "ckpt": phase_ckpt(card),
              "loop": phase_loop(card)}
     os.makedirs("output", exist_ok=True)
@@ -2414,4 +2751,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ddp-rank"]:
+        ddp_rank(sys.argv[2])
+    else:
+        main()

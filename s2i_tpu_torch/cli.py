@@ -30,6 +30,12 @@ batches ``{"images", "embedding", "class_id"}`` (plus ``"wav"``,
 device from pinned buffers on a side stream; ``featurize`` turns wavs into
 log-mel features on the device (K1 on the card). The TensorBoard mirror is
 not ported (``ROADMAP.md`` Queue 1).
+
+Under ``torchrun`` (:func:`command_device` joins the process group) the
+encoder pretraining, GAN training, sampling and eval drivers run over a
+data axis (``parallel.make_mesh_if_configured``): every rank walks the same
+(SEED, epoch) order and loads only its rows of each global batch, rank 0
+makes the run directory and writes what a run writes.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ import numpy as np
 import torch
 from PIL import Image
 
-from s2i_tpu_torch import config
+from s2i_tpu_torch import config, parallel
 from s2i_tpu_torch.audio.frontend import featurize, frontend_params_from_cfg
 from s2i_tpu_torch.data import SyntheticGanDataset, SyntheticSpeechDataset, synthetic_wavs
 from s2i_tpu_torch.data.pipeline import Prefetcher
@@ -108,9 +114,18 @@ def resolve_cfg(args) -> config.AttrDict:
     return cfg
 
 
-def resolve_args_device(args) -> torch.device:
+def resolve_args_device(args, distributed: bool = False) -> torch.device:
     """``--device cpu`` → the CPU; otherwise ``cuda:<--gpu>`` (or the
-    current card), which raises without a card."""
+    current card), which raises without a card. A torchrun launch of more
+    than one rank raises unless the command is ``distributed`` (it then
+    joins the process group in :func:`command_device`), and there ``--gpu``
+    raises too: ``LOCAL_RANK`` picks each rank's card."""
+    world = parallel.launched_world_size()
+    if world > 1 and not distributed:
+        raise ValueError(f"this command runs in one process, but WORLD_SIZE={world} ranks were launched")
+    if world > 1 and args.gpu_id is not None:
+        raise ValueError(f"--gpu names one card, but WORLD_SIZE={world} ranks were launched: under torchrun "
+                         "LOCAL_RANK picks each rank's card")
     if args.device == "cpu":
         if args.gpu_id is not None:
             raise ValueError("--gpu names a card; it cannot go with --device cpu")
@@ -118,24 +133,47 @@ def resolve_args_device(args) -> torch.device:
     return resolve_device("cuda" if args.gpu_id is None else f"cuda:{args.gpu_id}")
 
 
-def make_run_dir(cfg, tag: str) -> str:
+@contextlib.contextmanager
+def command_device(args, distributed: bool = False):
+    """The device a command runs on (:func:`resolve_args_device`). Under
+    torchrun's environment a ``distributed`` command joins the process group
+    first (NCCL on the card, ``cuda:LOCAL_RANK``; gloo with ``--device
+    cpu``) and leaves it as the command ends, also when it raises, so that a
+    failing rank exits instead of hanging; any other command refuses a
+    launch of more than one rank."""
+    dev = resolve_args_device(args, distributed)
+    try:
+        if distributed and parallel.maybe_initialize_distributed(dev):
+            dev = resolve_device(parallel.local_device(dev))
+        yield dev
+    finally:
+        parallel.destroy()
+
+
+def make_run_dir(cfg, tag: str, axis: parallel.DataAxis | None = None) -> str:
     """``<OUTPUT_DIR>/<dataset>_<config>_<tag>_<timestamp>``, created, with
-    the resolved config in ``config.yml``."""
-    stamp = datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
-    run_dir = os.path.join(cfg.OUTPUT_DIR, f"{cfg.DATASET_NAME}_{cfg.CONFIG_NAME}_{tag}_{stamp}")
-    os.makedirs(run_dir, exist_ok=True)
-    config.dump_cfg(cfg, os.path.join(run_dir, "config.yml"))
-    return run_dir
+    the resolved config in ``config.yml``; over ``axis`` rank 0 makes it and
+    every rank gets its name."""
+    run_dir = None
+    if axis is None or axis.rank == 0:
+        stamp = datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
+        run_dir = os.path.join(cfg.OUTPUT_DIR, f"{cfg.DATASET_NAME}_{cfg.CONFIG_NAME}_{tag}_{stamp}")
+        os.makedirs(run_dir, exist_ok=True)
+        config.dump_cfg(cfg, os.path.join(run_dir, "config.yml"))
+    return run_dir if axis is None else axis.broadcast_object(run_dir)
 
 
 def speech_host_batches(
-    cfg, wav_batches: Callable[[int], Iterable[dict]] | None = None
+    cfg, wav_batches: Callable[[int], Iterable[dict]] | None = None, axis: parallel.DataAxis | None = None
 ) -> Callable[[int], Iterable[dict]]:
     """epoch → host encoder-pretrain batches: the synthetic corpus's
     features, ``wav_batches(epoch)`` when given, or the StackGAN tree's
     captions (``SpeechEpochIterator`` over ``DATA_DIR``'s train split,
-    shuffled from SEED + epoch)."""
+    shuffled from SEED + epoch). Over ``axis``, this rank's rows of each
+    global batch of ``ENCODER.BATCH_SIZE``: the loaders load only those, the
+    caller's batches are sliced."""
     batch_size = int(cfg.ENCODER.BATCH_SIZE)
+    rows = None if axis is None else axis.rows(batch_size)
     if cfg.DATASET_NAME == "synthetic":
         ds = SyntheticSpeechDataset(
             num_classes=int(cfg.ENCODER.N_CLASSES),
@@ -145,25 +183,28 @@ def speech_host_batches(
             seed=int(cfg.SEED),
         )
         steps = max(1, ds.n // batch_size)
-        return lambda epoch: ds.batches(batch_size, steps, seed=int(cfg.SEED) + epoch)
+        return lambda epoch: ds.batches(batch_size, steps, seed=int(cfg.SEED) + epoch, rows=rows)
     if wav_batches is not None:
-        return wav_batches
+        return wav_batches if axis is None else lambda epoch: (parallel.shard_batch(b, axis)
+                                                               for b in wav_batches(epoch))
     p = frontend_params_from_cfg(cfg.AUDIO)
     split = StackGanSplit(cfg.DATA_DIR, "train")
     return lambda epoch: SpeechEpochIterator(split, batch_size, p.sample_rate, p.max_samples,
-                                             seed=int(cfg.SEED) + epoch)
+                                             seed=int(cfg.SEED) + epoch, rows=rows)
 
 
 def speech_batch_factory(
     cfg,
     device: str | torch.device = "cuda",
     wav_batches: Callable[[int], Iterable[dict]] | None = None,
+    axis: parallel.DataAxis | None = None,
 ) -> Callable[[int], Iterable[dict]]:
     """epoch → encoder-pretrain batches on ``device``: those of
-    :func:`speech_host_batches`, loaded and copied ahead by a prefetch
-    thread (``SPEECH_PREFETCH`` deep), wavs through :func:`featurize`."""
+    :func:`speech_host_batches` (this rank's rows over ``axis``), loaded and
+    copied ahead by a prefetch thread (``SPEECH_PREFETCH`` deep), wavs
+    through :func:`featurize`."""
     dev = resolve_device(device)
-    host = speech_host_batches(cfg, wav_batches)
+    host = speech_host_batches(cfg, wav_batches, axis)
     p = frontend_params_from_cfg(cfg.AUDIO)
 
     def factory(epoch: int):
@@ -193,13 +234,17 @@ def run_encoder_pretrain(
     snapshot replays its epoch from the start, as the JAX loop does). Every
     ``ENCODER.LOG_EVERY`` steps it appends the step's metrics and
     ``examples_per_sec`` to ``<run_dir>/scalars.jsonl``; it checkpoints every
-    ``ENCODER.SNAPSHOT_INTERVAL`` steps and at each epoch's end. Returns the
-    last step's metrics."""
+    ``ENCODER.SNAPSHOT_INTERVAL`` steps and at each epoch's end. Under
+    torchrun every rank steps on its rows of each global batch
+    (``ENCODER.BATCH_SIZE``) and rank 0 writes. Returns the last step's
+    metrics."""
     dev = resolve_device(device)
-    run_dir = run_dir or make_run_dir(cfg, "encoder")
+    axis = parallel.make_mesh_if_configured(cfg, int(cfg.ENCODER.BATCH_SIZE))
+    writer = axis is None or axis.rank == 0
+    run_dir = run_dir or make_run_dir(cfg, "encoder", axis)
     prog_path = os.path.join(run_dir, "train_progress.json")
-    state = init_encoder_state(cfg, device=dev)
-    ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"))
+    state = init_encoder_state(cfg, device=dev, axis=axis)
+    ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"), writer=writer)
     start_epoch = 0
     if ckpt.restore_latest(state) is not None:
         try:
@@ -208,8 +253,9 @@ def run_encoder_pretrain(
         except (OSError, ValueError):
             start_epoch = 0  # no progress file: replay from the first epoch
         print(f"resumed from step {state.step} (epoch {start_epoch})")
-    factory = speech_batch_factory(cfg, dev, wav_batches)
-    logger = ScalarLogger(run_dir)
+    parallel.replicate_state(state, axis)
+    factory = speech_batch_factory(cfg, dev, wav_batches, axis)
+    logger = ScalarLogger(run_dir, writer=writer)
     log_every = int(cfg.ENCODER.LOG_EVERY)
     snapshot = int(cfg.ENCODER.SNAPSHOT_INTERVAL)
     done = lambda: steps is not None and state.step >= steps  # noqa: E731
@@ -233,7 +279,7 @@ def run_encoder_pretrain(
                 for batch in batches:
                     if done():
                         break
-                    seen += batch["feats"].shape[0]
+                    seen += batch["feats"].shape[0] * (1 if axis is None else axis.size)
                     mets = encoder_train_step(state, batch)
                     if log_every and state.step % log_every == 0:
                         dt = time.time() - t0
@@ -250,6 +296,8 @@ def run_encoder_pretrain(
             break
     finally:
         logger.close()
+    if axis is not None:
+        axis.barrier()  # rank 0's checkpoint is on disk when any rank returns
     print(f"run dir: {run_dir}")
     return {k: float(v) for k, v in mets.items()}
 
@@ -265,7 +313,10 @@ def run_embedding_extraction(
     ``<DATA_DIR>/<split>/<out_path>``, a float32 [images, captions,
     TEXT.DIMENSION] pickle that ``StackGanSplit`` (the port's and the JAX
     package's) reads as ``TEXT.EMBEDDING_FILE``. WAV reads and copies run in
-    a prefetch thread. Returns the paths written, by split."""
+    a prefetch thread. Returns the paths written, by split. It runs in one
+    process: a torchrun launch of more than one rank raises."""
+    if parallel.launched_world_size() > 1:
+        raise ValueError("embedding extraction (--extract) runs in one process; launch it without torchrun")
     dev = resolve_device(device)
     restored = CheckpointManager(encoder_ckpt).restore_latest_raw()
     if restored is None:
@@ -312,13 +363,15 @@ def _synthetic_gan(cfg) -> SyntheticGanDataset:
     )
 
 
-def synthetic_gan_batches(cfg) -> Callable[[int], Iterable[dict]]:
+def synthetic_gan_batches(cfg, axis: parallel.DataAxis | None = None) -> Callable[[int], Iterable[dict]]:
     """epoch → host batches of the synthetic GAN corpus, ``TRAIN.BATCH_SIZE``
-    each; in joint mode (``TRAIN.JOINT_FT``) each example carries a wav of
+    each (over ``axis``, this rank's rows of each); in joint mode
+    (``TRAIN.JOINT_FT``) each example carries a wav of
     :func:`synthetic_wavs` and distills toward its own embedding."""
     joint = bool(cfg.TRAIN.JOINT_FT)
     ds = _synthetic_gan(cfg)
     bs = int(cfg.TRAIN.BATCH_SIZE)
+    rows = slice(None) if axis is None else axis.rows(bs)
     steps = max(1, ds.n // bs)
     if joint:
         p = frontend_params_from_cfg(cfg.AUDIO)
@@ -327,7 +380,7 @@ def synthetic_gan_batches(cfg) -> Callable[[int], Iterable[dict]]:
     def factory(epoch: int):
         rng = np.random.default_rng(int(cfg.SEED) + epoch)
         for _ in range(steps):
-            idx = rng.integers(0, ds.n, size=bs)
+            idx = rng.integers(0, ds.n, size=bs)[rows]
             b = ds.batch(idx)
             if joint:
                 b.update(wav=wavs[idx], wav_len=lens[idx], teacher=b["embedding"])
@@ -336,10 +389,11 @@ def synthetic_gan_batches(cfg) -> Callable[[int], Iterable[dict]]:
     return factory
 
 
-def stackgan_gan_batches(cfg) -> Callable[[int], Iterable[dict]]:
+def stackgan_gan_batches(cfg, axis: parallel.DataAxis | None = None) -> Callable[[int], Iterable[dict]]:
     """epoch → host GAN batches of ``DATA_DIR``'s train split
     (``GanEpochIterator``, shuffled from SEED + epoch, one caption drawn per
-    image, ``TEXT.EMBEDDING_FILE``'s embedding of it). ``DATA.PIPELINE``:
+    image, ``TEXT.EMBEDDING_FILE``'s embedding of it; over ``axis`` the
+    rank's rows of each, the only images and wavs it loads). ``DATA.PIPELINE``:
     ``native`` takes the C++ JPEG loader where it builds (``g++`` and
     libjpeg) and PIL otherwise, ``pil`` always PIL. In joint mode
     (``TRAIN.JOINT_FT``) each example also carries the wav of the same
@@ -367,22 +421,26 @@ def stackgan_gan_batches(cfg) -> Callable[[int], Iterable[dict]]:
         image_dtype=str(cfg.DATA.IMAGE_DTYPE),
         ship_scales=str(cfg.DATA.SHIP_SCALES),
         fast_decode=bool(cfg.DATA.FAST_DECODE),
+        rows=None if axis is None else axis.rows(int(cfg.TRAIN.BATCH_SIZE)),
     )
 
 
 def gan_batch_factory(
-    cfg, batches: Callable[[int], Iterable[dict]] | None = None
+    cfg, batches: Callable[[int], Iterable[dict]] | None = None, axis: parallel.DataAxis | None = None
 ) -> Callable[[int], Iterable[dict]]:
-    """epoch → host GAN batches: ``batches(epoch)`` when given, else the
-    synthetic corpus (``DATASET_NAME: synthetic``) or the StackGAN tree
-    (:func:`stackgan_gan_batches`). Joint-mode batches carry their captions'
-    wavs, which the trainer featurizes on the device (K1 on the card) as it
-    takes each batch."""
+    """epoch → host GAN batches: ``batches(epoch)`` when given (global
+    batches), else the synthetic corpus (``DATASET_NAME: synthetic``) or the
+    StackGAN tree (:func:`stackgan_gan_batches`). Over ``axis``, this rank's
+    rows of each global batch: the loaders load only those, the caller's
+    batches are sliced. Joint-mode batches carry their captions' wavs,
+    which the trainer featurizes on the device (K1 on the card) as it takes
+    each batch."""
     if batches is not None:
-        return batches
+        return batches if axis is None else lambda epoch: (parallel.shard_batch(b, axis)
+                                                           for b in batches(epoch))
     if cfg.DATASET_NAME == "synthetic":
-        return synthetic_gan_batches(cfg)
-    return stackgan_gan_batches(cfg)
+        return synthetic_gan_batches(cfg, axis)
+    return stackgan_gan_batches(cfg, axis)
 
 
 def run_gan_training(
@@ -401,10 +459,13 @@ def run_gan_training(
     (or ``TRAIN.NET_G`` / ``TRAIN.NET_E``'s). An existing ``run_dir``
     resumes where its latest checkpoint stopped. Every ``log_every`` steps it
     appends the step's metrics and ``images_per_sec`` to
-    ``<run_dir>/scalars.jsonl``. Returns the last step's metrics."""
+    ``<run_dir>/scalars.jsonl``. Under torchrun every rank trains on its rows
+    of each global batch. Returns the last step's metrics."""
     dev = resolve_device(device)
-    run_dir = run_dir or make_run_dir(cfg, "train")
-    trainer = GanTrainer(cfg, run_dir, gan_batch_factory(cfg, batches), log_every=log_every, device=dev)
+    axis = parallel.make_mesh_if_configured(cfg, int(cfg.TRAIN.BATCH_SIZE))
+    run_dir = run_dir or make_run_dir(cfg, "train", axis)
+    trainer = GanTrainer(cfg, run_dir, gan_batch_factory(cfg, batches, axis), log_every=log_every, device=dev,
+                         mesh=axis)
     try:
         mets = trainer.train(epochs, steps)
     finally:
@@ -421,9 +482,11 @@ def run_sampling(cfg, device: str | torch.device = "cuda") -> str:
     ``TRAIN.NET_G``). The embeddings are the test split's first caption's
     (``TEXT.EMBEDDING_FILE``), each PNG named after its image's file name
     with ``/`` turned into ``_``; the synthetic corpus's (seed ``SEED +
-    999``) with ``DATASET_NAME: synthetic``. Returns the samples' directory."""
+    999``) with ``DATASET_NAME: synthetic``. Under torchrun each rank samples
+    its rows of each batch and rank 0 writes. Returns the samples' directory."""
     dev = resolve_device(device)
-    run_dir = make_run_dir(cfg, "sample")
+    axis = parallel.make_mesh_if_configured(cfg)
+    run_dir = make_run_dir(cfg, "sample", axis)
     if cfg.DATASET_NAME == "synthetic":
         emb = SyntheticGanDataset(branch_num=int(cfg.TREE.BRANCH_NUM), base_size=int(cfg.TREE.BASE_SIZE),
                                   emb_dim=int(cfg.TEXT.DIMENSION), seed=int(cfg.SEED) + 999).embeddings
@@ -433,7 +496,7 @@ def run_sampling(cfg, device: str | torch.device = "cuda") -> str:
         emb = split.embeddings[:, 0]
         names = [f.replace("/", "_") for f in split.filenames]
     # the trainer only samples here: its batches are never drawn
-    trainer = GanTrainer(cfg, run_dir, lambda epoch: iter(()), device=dev)
+    trainer = GanTrainer(cfg, run_dir, lambda epoch: iter(()), device=dev, mesh=axis)
     out_dir = os.path.join(run_dir, "samples")
     try:
         trainer.sample_to_dir(np.asarray(emb, np.float32), out_dir, names,
@@ -550,11 +613,14 @@ def run_eval(
     quantizes inputs through uint8 before the 299 px resize, a no-op on
     decoded files (already uint8). Returns ``{"is_mean", "is_std",
     "n_gen", "inception"[, "fid"]}`` with ``inception`` "finetuned" when
-    weights were given, else "random-weight"."""
+    weights were given, else "random-weight". Under torchrun each rank
+    extracts its rows of each batch (``InceptionFeatures(mesh=)``; every
+    rank decodes the whole directory) and every rank returns the metrics."""
     if protocol not in ("exact", "pytorch-fid"):
         raise ValueError(f"unknown protocol {protocol!r}: exact or pytorch-fid")
     sd, n_classes = inception_weights(weights, finetuned_ckpt, num_classes)
-    ex = InceptionFeatures(sd, num_classes=n_classes, quantize_input=protocol == "pytorch-fid", device=device)
+    ex = InceptionFeatures(sd, num_classes=n_classes, quantize_input=protocol == "pytorch-fid", device=device,
+                           mesh=parallel.make_mesh_if_configured(None))
     gen_pool, gen_logits, n_gen = extract_dir(ex, gen_dir, batch, limit, img_size)
     mean, std = inception_score_from_probs(softmax(gen_logits), splits)
     rec = {"is_mean": round(float(mean), 4), "is_std": round(float(std), 4), "n_gen": int(n_gen),

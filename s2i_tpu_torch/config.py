@@ -3,9 +3,12 @@
 The port's own copy of the JAX package's config module: the same default
 tree (key for key, value for value; ``tests/test_torch_guards.py`` holds the
 two equal), so the existing ``cfg/*.yml`` files load unchanged. Keys that
-only steer the JAX package's layouts (``GAN.S2D``, ``GAN.REMAT``, ``MESH``,
-...) are read by nothing in the port yet; they stay so that a YAML file's
-type checks behave the same in both packages. ``DTYPE.COMPUTE`` and
+only steer the JAX package's layouts (``GAN.S2D``, ``GAN.REMAT``, ...) are
+read by nothing in the port; they stay so that a YAML file's type checks
+behave the same in both packages. ``MESH`` is read by
+``parallel.make_mesh_if_configured``: ``MESH.DATA_AXIS`` names the data axis
+and ``MESH.NUM_DEVICES`` (0: every launched rank) must match torchrun's
+world size. ``DTYPE.COMPUTE`` and
 ``TRAIN.MOMENT_DTYPE`` are read through ``device.compute_dtype`` and
 ``device.moment_dtype``, which take float32 or bfloat16 and raise on
 anything else.

@@ -11,7 +11,9 @@ worker. On a CUDA device (:class:`_CudaStager`) it copies each array into a
 pinned host buffer and from there to the card with ``non_blocking=True`` on
 a side stream; the consumer's stream waits on an event recorded after the
 batch's copies before it takes the batch. On the CPU the arrays become
-tensors with ``torch.as_tensor`` (no copy).
+tensors with ``torch.as_tensor`` (no copy). Under a data axis each rank
+runs its own prefetcher onto its own card (``cuda:LOCAL_RANK``), fed its
+rows of each global batch.
 """
 
 from __future__ import annotations

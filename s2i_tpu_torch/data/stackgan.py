@@ -142,6 +142,16 @@ class StackGanSplit:
         return resample_linear(x, sr, sample_rate)
 
 
+def crop_draws(rng: np.random.Generator, imsize: int) -> tuple[int, int, bool]:
+    """The random crop offsets and flip of one image's StackGAN transform,
+    drawn from ``rng`` as :func:`pil_load_transform` draws them (they do not
+    depend on the image, so a loader can make them for an image it skips)."""
+    load_size = int(imsize * 76 / 64)
+    ox = int(rng.integers(0, load_size - imsize + 1))
+    oy = int(rng.integers(0, load_size - imsize + 1))
+    return ox, oy, bool(rng.random() < 0.5)
+
+
 def pil_load_transform(
     path: str,
     imsize: int,
@@ -172,10 +182,9 @@ def pil_load_transform(
     else:
         arr = np.asarray(img, dtype=np.float32) / 127.5 - 1.0
     if flip_and_crop and rng is not None:
-        ox = int(rng.integers(0, load_size - imsize + 1))
-        oy = int(rng.integers(0, load_size - imsize + 1))
+        ox, oy, flip = crop_draws(rng, imsize)
         arr = arr[oy : oy + imsize, ox : ox + imsize]
-        if rng.random() < 0.5:
+        if flip:
             arr = arr[:, ::-1]
     else:
         off = (load_size - imsize) // 2
@@ -225,7 +234,9 @@ def wav_batch(split: StackGanSplit, items, batch_size: int, sample_rate: int, ma
 class SpeechEpochIterator:
     """Shuffled epoch batches for encoder pretraining: fixed-length raw wav
     buffers + per-utterance lengths + teacher embeddings + class ids. The
-    log-mel frontend runs on the device downstream (K1 on the card)."""
+    log-mel frontend runs on the device downstream (K1 on the card).
+    ``rows``: only those rows of each batch are loaded and yielded (a
+    rank's share of a global batch; the order is the global one)."""
 
     def __init__(
         self,
@@ -235,6 +246,7 @@ class SpeechEpochIterator:
         max_samples: int,
         seed: int = 0,
         drop_last: bool = True,
+        rows: slice | None = None,
     ):
         self.split = split
         self.batch_size = batch_size
@@ -242,6 +254,7 @@ class SpeechEpochIterator:
         self.max_samples = max_samples
         self.rng = np.random.default_rng(seed)
         self.drop_last = drop_last
+        self.rows = rows or slice(None)
 
     def __iter__(self):
         n = len(self.split)
@@ -251,6 +264,7 @@ class SpeechEpochIterator:
             idx = order[start : start + self.batch_size]
             if len(idx) < self.batch_size and self.drop_last:
                 return
+            idx = idx[self.rows]
             items = [divmod(int(flat), caps) for flat in idx]
             img_idx = idx // caps
             cap_idx = idx % caps
@@ -267,7 +281,11 @@ class GanEpochIterator:
     """Shuffled epoch batches for GAN training from a StackGanSplit.
 
     Each example picks one of the caption embeddings at random (reference
-    TextDataset behavior). Yields the trainer's batch dict.
+    TextDataset behavior). Yields the trainer's batch dict. ``rows``: only
+    those rows of each batch are loaded and yielded (a rank's share of a
+    global batch), equal to the same rows of the whole batch: the PIL path
+    makes the crop and flip draws of the other rows without loading them,
+    and the native loader seeds each image by its row in the whole batch.
     """
 
     def __init__(
@@ -286,8 +304,10 @@ class GanEpochIterator:
         image_dtype: str = "float32",
         ship_scales: str = "all",
         fast_decode: bool = False,
+        rows: slice | None = None,
     ):
         self.split = split
+        self.rows = rows or slice(None)
         self.batch_size = batch_size
         self.branch_num = branch_num
         self.base_size = base_size
@@ -316,7 +336,7 @@ class GanEpochIterator:
         # native path only — the PIL fallback stays full-resolution.
         self.fast_decode = fast_decode
 
-    def _load_scales_native(self, idx: np.ndarray, batch_seed: int):
+    def _load_scales_native(self, idx: np.ndarray, batch_seed: int, first_row: int = 0):
         paths = [self.split.image_path(int(i)) for i in idx]
         if any(not p.lower().endswith((".jpg", ".jpeg")) for p in paths):
             return None  # mixed formats: take the PIL path
@@ -338,6 +358,7 @@ class GanEpochIterator:
             n_branches,
             batch_seed,
             augment=True,
+            first_row=first_row,
             num_threads=self.num_threads,
             dtype=self.image_dtype,
             fast_decode=self.fast_decode,
@@ -358,16 +379,18 @@ class GanEpochIterator:
                             outs[b][j] = s
         return outs
 
-    def _load_scales_pil(self, idx: np.ndarray):
+    def _load_scales_pil(self, idx: np.ndarray, keep: range | None = None):
+        """The images of ``idx`` (only its rows in ``keep``; the others'
+        crop and flip draws are made all the same)."""
         top = self.base_size * 2 ** (self.branch_num - 1)
-        imgs = np.stack(
-            [
-                self.split.load_image(
-                    int(i), top, self.rng, dtype=self.image_dtype
-                )
-                for i in idx
-            ]
-        )
+        keep = range(len(idx)) if keep is None else keep
+        imgs = []
+        for j, i in enumerate(idx):
+            if j in keep:
+                imgs.append(self.split.load_image(int(i), top, self.rng, dtype=self.image_dtype))
+            else:
+                crop_draws(self.rng, top)
+        imgs = np.stack(imgs)
         if self.ship_scales == "top":
             return [imgs]
         return [
@@ -384,12 +407,14 @@ class GanEpochIterator:
             idx = order[start : start + self.batch_size]
             if len(idx) < self.batch_size and self.drop_last:
                 return
+            keep = range(len(idx))[self.rows]
             scales = None
             if self.use_native:
-                scales = self._load_scales_native(idx, self.seed * 100003 + bnum)
+                scales = self._load_scales_native(idx[self.rows], self.seed * 100003 + bnum, keep.start)
             if scales is None:
-                scales = self._load_scales_pil(idx)
-            cap = self.rng.integers(0, self.split.captions_per_image, len(idx))
+                scales = self._load_scales_pil(idx, keep)
+            cap = self.rng.integers(0, self.split.captions_per_image, len(idx))[self.rows]
+            idx = idx[self.rows]
             emb = self.split.embeddings[idx, cap]
             out = {
                 "images": tuple(scales),

@@ -56,10 +56,12 @@ class SyntheticSpeechDataset:
             "class_id": self.class_id[idx],
         }
 
-    def batches(self, batch_size: int, steps: int, seed: int = 0):
+    def batches(self, batch_size: int, steps: int, seed: int = 0, rows: slice | None = None):
+        """``steps`` batches of ``batch_size`` examples drawn from ``seed``;
+        ``rows`` keeps those rows of each (a rank's share of a global batch)."""
         rng = np.random.default_rng(seed)
         for _ in range(steps):
-            yield self.batch(rng.integers(0, self.n, size=batch_size))
+            yield self.batch(rng.integers(0, self.n, size=batch_size)[rows or slice(None)])
 
 
 def _downscale(img: np.ndarray, factor: int) -> np.ndarray:

@@ -27,6 +27,14 @@ Every command but ``eval`` and ``export-torch-gan`` takes ``--cfg --data_dir --o
 (``--gpu N``: ``cuda:N``), and ``--device cpu`` runs the kernels' plain
 PyTorch versions on the CPU. Without a card and without ``--device cpu`` a
 command raises.
+
+``train``, ``sample``, ``pretrain-encoder`` (not ``--extract``) and ``eval``
+run data-parallel under torchrun, one process per card, ``LOCAL_RANK``
+picking the card (``--gpu`` then raises; ``--device cpu`` takes gloo):
+
+    torchrun --nproc_per_node 4 -m s2i_tpu_torch train --cfg cfg/birds_3stages.yml
+
+Every other command refuses a launch of more than one rank.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ import json
 import os
 import sys
 
-from s2i_tpu_torch import cli
+from s2i_tpu_torch import cli, parallel
 from s2i_tpu_torch.export import export_pipeline, load, read_meta
 from s2i_tpu_torch.pipeline import SpeechToImage
 from s2i_tpu_torch.serving import make_server
@@ -48,7 +56,9 @@ COMMANDS = ("train", "sample", "pretrain-encoder", "finetune-inception", "eval",
 def train_gan(argv: list[str] | None = None) -> dict:
     """GAN training (frozen or joint by ``TRAIN.JOINT_FT``) into a new run dir."""
     args = cli.base_parser("GAN training").parse_args(argv)
-    return cli.run_gan_training(cli.resolve_cfg(args), device=cli.resolve_args_device(args))
+    cfg = cli.resolve_cfg(args)
+    with cli.command_device(args, distributed=True) as device:
+        return cli.run_gan_training(cfg, device=device)
 
 
 def sample(argv: list[str] | None = None) -> str:
@@ -56,7 +66,8 @@ def sample(argv: list[str] | None = None) -> str:
     args = cli.base_parser("Sampling").parse_args(argv)
     cfg = cli.resolve_cfg(args)
     cfg.TRAIN.FLAG = False
-    return cli.run_sampling(cfg, device=cli.resolve_args_device(args))
+    with cli.command_device(args, distributed=True) as device:
+        return cli.run_sampling(cfg, device=device)
 
 
 def pretrain_encoder(argv: list[str] | None = None):
@@ -70,10 +81,10 @@ def pretrain_encoder(argv: list[str] | None = None):
                    help="per-split output pickle name for --extract")
     args = p.parse_args(argv)
     cfg = cli.resolve_cfg(args)
-    device = cli.resolve_args_device(args)
-    if args.extract:
-        return cli.run_embedding_extraction(cfg, args.extract, args.emb_out, device=device)
-    return cli.run_encoder_pretrain(cfg, epochs=args.epochs, device=device)
+    with cli.command_device(args, distributed=not args.extract) as device:
+        if args.extract:
+            return cli.run_embedding_extraction(cfg, args.extract, args.emb_out, device=device)
+        return cli.run_encoder_pretrain(cfg, epochs=args.epochs, device=device)
 
 
 def finetune_inception(argv: list[str] | None = None) -> str:
@@ -117,15 +128,18 @@ def evaluate(argv: list[str] | None = None) -> dict:
     p.add_argument("--json", action="store_true", help="print one machine-readable JSON line")
     cli.add_device_flags(p)
     args = p.parse_args(argv)
-    device = cli.resolve_args_device(args)
     if args.retrieval:
-        m = cli.run_retrieval(*args.retrieval, device=device)
+        m = cli.run_retrieval(*args.retrieval, device=cli.resolve_args_device(args))
         print(json.dumps(m, indent=2))
         return m
     if not args.gen_dir:
         p.error("--gen_dir required (or use --retrieval)")
-    rec = cli.run_eval(args.gen_dir, args.real_dir, args.weights, args.finetuned_ckpt, args.num_classes,
-                       args.splits, args.batch, args.limit, args.img_size, args.protocol, device=device)
+    with cli.command_device(args, distributed=True) as device:
+        rec = cli.run_eval(args.gen_dir, args.real_dir, args.weights, args.finetuned_ckpt, args.num_classes,
+                           args.splits, args.batch, args.limit, args.img_size, args.protocol, device=device)
+        rank = parallel.mesh_rank()
+    if rank:
+        return rec  # rank 0 prints
     if args.json:
         print(json.dumps(rec))
     else:
@@ -260,7 +274,7 @@ def main(argv: list[str] | None = None):
         return run(argv[1:])
     args = cli.base_parser(__doc__).parse_args(argv)
     cfg = cli.resolve_cfg(args)
-    device = cli.resolve_args_device(args)
-    if bool(cfg.TRAIN.FLAG):
-        return cli.run_gan_training(cfg, device=device)
-    return cli.run_sampling(cfg, device=device)
+    with cli.command_device(args, distributed=True) as device:
+        if bool(cfg.TRAIN.FLAG):
+            return cli.run_gan_training(cfg, device=device)
+        return cli.run_sampling(cfg, device=device)

@@ -13,6 +13,11 @@ queued; only then does the host wait on batch i's event. A plain ``.cpu()``
 of batch i issued after batch i+1 is queued would wait for batch i+1 too.
 The features are bitwise those of the serial loop: the same program runs on
 the same batches, only the waits move.
+
+With ``mesh`` (a ``parallel.DataAxis``) each rank runs its rows of each
+batch (the batch rounded up to a multiple of the world size) and the
+features and logits are gathered, so every rank returns those of every
+image (``s2i_tpu/eval/features.py``'s ``mesh``).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from s2i_tpu_torch.device import resolve_device
+from s2i_tpu_torch.parallel import DataAxis
 from s2i_tpu_torch.models.inception import InceptionV3, init_weights
 
 
@@ -71,8 +77,10 @@ class InceptionFeatures:
         image_size: int = 299,
         quantize_input: bool = False,
         device: str | torch.device = "cuda",
+        mesh: DataAxis | None = None,
     ):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.model = InceptionV3(num_classes=num_classes)
         if state_dict is None:
             init_weights(self.model, torch.Generator().manual_seed(rng_seed))
@@ -85,14 +93,22 @@ class InceptionFeatures:
 
     @torch.no_grad()
     def forward(self, imgs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """One batch on the device → (pool3, logits) on the device."""
+        """One batch on the device → (pool3, logits) on the device; over the
+        mesh, this rank's rows of the batch run and every row's come back."""
+        if self.mesh is not None:
+            imgs = imgs[self.mesh.rows(imgs.shape[0])]
         out = self.model(preprocess(imgs, self.image_size, self.quantize_input))
+        if self.mesh is not None:
+            return self.mesh.all_gather(out["pool3"]), self.mesh.all_gather(out["logits"])
         return out["pool3"], out["logits"]
 
     def extract(self, images: np.ndarray, batch_size: int = 64) -> tuple[np.ndarray, np.ndarray]:
         """[N, H, W, 3] in [-1, 1] → (pool3 [N, 2048], logits [N, C]) as
-        float32 numpy, ``batch_size`` images a pass, the tail batch padded
-        with zeros and its rows dropped."""
+        float32 numpy, ``batch_size`` images a pass (over the mesh rounded
+        up to a multiple of the world size), the tail batch padded with zeros
+        and its rows dropped."""
+        if self.mesh is not None:
+            batch_size = -(-batch_size // self.mesh.size) * self.mesh.size
         n = images.shape[0]
         pools = np.empty((n, 2048), np.float32)
         logits = np.empty((n, self.num_classes), np.float32)

@@ -132,7 +132,15 @@ class BatchNorm(nn.Module):
     move by ``running = momentum * running + (1 - momentum) * batch``
     (Flax's momentum 0.9 is torch's 0.1; the running variance stays
     biased). Its state_dict keys are those of ``nn.BatchNorm{1,2}d`` minus
-    ``num_batches_tracked``."""
+    ``num_batches_tracked``.
+
+    ``axis`` (a ``parallel.DataAxis``, set by :func:`set_batchnorm_axis`):
+    in train mode the stacked float32 (mean, E[x²]) is ``pmean``-ed over
+    the ranks before the variance is taken, as the JAX package's BatchNorm
+    with an ``axis_name`` does, so the statistics are the global batch's and
+    the running ones move identically on every rank. torch's
+    ``SyncBatchNorm`` gathers per-rank means and variances instead and keeps
+    an unbiased running variance. Without an axis the BN is the rank's own."""
 
     momentum = 0.9  # Flax nn.BatchNorm(momentum=0.9), as every BN of the JAX package
 
@@ -140,6 +148,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
+        self.axis = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -150,8 +159,10 @@ class BatchNorm(nn.Module):
         x = x.float()
         if self.training:
             dims = [0, *range(2, x.ndim)]
-            mean = x.mean(dims)
-            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            mean, mean_sq = x.mean(dims), (x * x).mean(dims)
+            if self.axis is not None:
+                mean, mean_sq = self.axis.pmean(torch.stack([mean, mean_sq])).unbind()
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
@@ -160,6 +171,17 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)).to(self.dtype)
+
+
+def set_batchnorm_axis(module: nn.Module, axis) -> nn.Module:
+    """Set ``axis`` (a ``parallel.DataAxis``, or None) on every
+    :class:`BatchNorm` of ``module``'s tree, the counterpart of the JAX
+    package's ``model.clone(axis_name=...)``: no parameter or state_dict key
+    changes. Returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.axis = axis
+    return module
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:

@@ -102,6 +102,10 @@ def unavailable_reason() -> str | None:
     return _unavailable
 
 
+_SEED_MUL = 0x9E3779B97F4A7C15  # image_loader.cpp seeds image i with seed * _SEED_MUL + i + 1
+_SEED_MUL_INV = pow(_SEED_MUL, -1, 2**64)
+
+
 def load_batch(
     paths: list[str],
     bboxes: np.ndarray | None,
@@ -112,6 +116,7 @@ def load_batch(
     num_threads: int = 8,
     dtype: str = "float32",
     fast_decode: bool = False,
+    first_row: int = 0,
 ) -> tuple[list[np.ndarray], int]:
     """Decode and transform a batch of JPEGs.
 
@@ -119,7 +124,12 @@ def load_batch(
     yields [-1, 1] values, ``"uint8"`` raw [0, 255] for normalization on the
     device (``DATA.IMAGE_DTYPE``). ``fast_decode`` takes libjpeg's
     DCT-scaled decode (``DATA.FAST_DECODE``), an approximation. Failed slots
-    are zeroed; the caller backfills them through PIL.
+    are zeroed; the caller backfills them through PIL. ``first_row``: the
+    paths are rows ``first_row``.. of a larger batch with this ``seed``, and
+    each image takes the crop and flip it has there (a rank's share of a
+    global batch): the seed moves by ``first_row / _SEED_MUL`` modulo 2^64,
+    so that the library's ``seed * _SEED_MUL + i + 1`` is the larger
+    batch's.
     """
     lib = get_lib()
     if lib is None:
@@ -146,7 +156,7 @@ def load_batch(
         c_bb,
         imsize,
         branch_num,
-        ctypes.c_uint64(seed & (2**64 - 1)),
+        ctypes.c_uint64((seed + first_row * _SEED_MUL_INV) & (2**64 - 1)),
         1 if augment else 0,
         c_outs,
         num_threads,

@@ -8,7 +8,9 @@ Adam with optax ``adam``'s defaults.
 Extraction runs the eval-mode encoder over a corpus in fixed-size batches.
 Both compute in ``DTYPE.COMPUTE`` (``pipeline.build_encoder``); the
 optimizer is plain Adam whatever ``TRAIN.MOMENT_DTYPE`` says, as in the JAX
-package.
+package. Over a data axis (``state.axis``, :func:`use_axis`) each rank steps
+on its rows of one global batch with the encoder's BatchNorms synced, and
+the gradients, the loss and the metrics are averaged over the ranks.
 
     state = init_encoder_state(cfg)                    # on the card
     metrics = encoder_train_step(state, batch)         # {"loss", "mse", ...}
@@ -18,6 +20,7 @@ package.
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
@@ -25,10 +28,13 @@ from torch import nn
 
 from s2i_tpu_torch.device import resolve_device
 from s2i_tpu_torch.models.encoder import BiGRU, SpeechEncoder
-from s2i_tpu_torch.models.layers import BatchNorm, lecun_normal_
+from s2i_tpu_torch.models.layers import BatchNorm, lecun_normal_, set_batchnorm_axis
 from s2i_tpu_torch.pipeline import build_encoder
 from s2i_tpu_torch.train.losses import distillation_loss
 from s2i_tpu_torch.utils.checkpoint import load_optimizer
+
+if TYPE_CHECKING:
+    from s2i_tpu_torch.parallel import DataAxis
 
 
 @torch.no_grad()
@@ -61,6 +67,7 @@ class EncoderTrainState:
     opt: torch.optim.Adam
     ce_coeff: float
     step: int = 0
+    axis: DataAxis | None = None  # the data axis the step runs over (use_axis); not part of the state_dict
 
     def state_dict(self) -> dict:
         """The model's parameters and buffers (``"model"``: the encoder's
@@ -75,10 +82,18 @@ class EncoderTrainState:
         self.step = int(sd["step"])
 
 
-def init_encoder_state(cfg, device: str | torch.device = "cuda") -> EncoderTrainState:
+def use_axis(state: EncoderTrainState, axis: DataAxis | None) -> EncoderTrainState:
+    """Run ``state``'s steps over ``axis`` (None: alone), the encoder's
+    BatchNorms synced over it. Returns ``state``."""
+    state.axis = axis
+    set_batchnorm_axis(state.model, axis)
+    return state
+
+
+def init_encoder_state(cfg, device: str | torch.device = "cuda", axis: DataAxis | None = None) -> EncoderTrainState:
     """The encoder of ``cfg`` on ``device`` in train mode, with weights drawn
     from a ``torch.Generator`` seeded with ``cfg.SEED`` (the same weights on
-    every device), and a fresh Adam. Other weights load with
+    every device), and a fresh Adam, stepping over ``axis``. Other weights load with
     ``state.model.load_state_dict`` (e.g. from ``bridge.encoder_state_dict``)
     before the first step."""
     model = build_encoder(cfg)
@@ -86,15 +101,16 @@ def init_encoder_state(cfg, device: str | torch.device = "cuda") -> EncoderTrain
     model.to(resolve_device(device)).train()
     opt = torch.optim.Adam(model.parameters(), lr=float(cfg.ENCODER.LR), betas=(0.9, 0.999), eps=1e-8)
     e = cfg.ENCODER
-    return EncoderTrainState(model, opt, float(e.CE_COEFF) if bool(e.CLS_HEAD) else 0.0)
+    return use_axis(EncoderTrainState(model, opt, float(e.CE_COEFF) if bool(e.CLS_HEAD) else 0.0), axis)
 
 
 def encoder_train_step(state: EncoderTrainState, batch: dict) -> dict:
     """One distillation step on ``{"feats" [B, T, D], "feat_mask" [B, T],
     "teacher" [B, emb_dim], "class_id" [B]}`` (numpy or tensors); updates
     ``state`` in place and returns ``{"loss", "mse"[, "ce", "cls_acc"]}`` as
-    0-d tensors on the device. The gradients stay on the parameters until
-    the next step."""
+    0-d tensors on the device (averaged over the ranks under ``state.axis``,
+    where ``batch`` is the rank's rows). The gradients stay on the
+    parameters until the next step."""
     model = state.model
     dev = next(model.parameters()).device
     feats = torch.as_tensor(batch["feats"], dtype=torch.float32, device=dev)
@@ -109,9 +125,12 @@ def encoder_train_step(state: EncoderTrainState, batch: dict) -> dict:
     loss, mets = distillation_loss(emb, teacher, logits, labels, state.ce_coeff)
     state.opt.zero_grad(set_to_none=True)
     loss.backward()
+    if state.axis is not None:
+        state.axis.pmean_grads(model.parameters())
     state.opt.step()
     state.step += 1
-    return {"loss": loss.detach(), **{k: v.detach() for k, v in mets.items()}}
+    out = {"loss": loss.detach(), **{k: v.detach() for k, v in mets.items()}}
+    return out if state.axis is None else state.axis.pmean_metrics(out)
 
 
 @torch.no_grad()

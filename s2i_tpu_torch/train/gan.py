@@ -36,13 +36,20 @@ Evaluation (forward only): ``bn_recalc`` re-estimates G's BatchNorm
 statistics under the EMA weights, ``sampling_generator`` is the G to sample
 from and ``sample`` draws images from it with noise keyed by each example's
 global index.
+
+Over a data axis (``state.axis``, a ``parallel.DataAxis``; the JAX
+package's ``axis_name``) each rank steps on its rows of one global batch:
+its BatchNorms sync their statistics, the noise is the global batch's
+(:func:`step_noise`), the wrong pair looks across ranks, the gradients are
+averaged before each optimizer step (D, then G) and the metrics after the
+step, so N ranks give the one-process step on the global batch.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Callable
+from typing import TYPE_CHECKING, Callable
 
 import torch
 from torch import nn
@@ -52,11 +59,14 @@ from s2i_tpu_torch.models.ca_net import kl_divergence
 from s2i_tpu_torch.models.discriminator import DNet, build_discriminators
 from s2i_tpu_torch.models.encoder import SpeechEncoder
 from s2i_tpu_torch.models.generator import GNet
-from s2i_tpu_torch.models.layers import BatchNorm
+from s2i_tpu_torch.models.layers import BatchNorm, set_batchnorm_axis
 from s2i_tpu_torch.pipeline import build_encoder, build_generator
 from s2i_tpu_torch.train import encoder as encoder_train
 from s2i_tpu_torch.train import losses
 from s2i_tpu_torch.utils.checkpoint import load_optimizer
+
+if TYPE_CHECKING:
+    from s2i_tpu_torch.parallel import DataAxis
 
 
 @dataclasses.dataclass
@@ -210,6 +220,7 @@ class GanTrainState:
     ema: dict[str, torch.Tensor]  # Polyak copy of g's parameters; {} when EMA_G is 0
     sc: StepConfig
     step: int = 0
+    axis: DataAxis | None = None  # the data axis the step runs over (use_axis); not part of the state_dict
 
     @property
     def device(self) -> torch.device:
@@ -263,12 +274,23 @@ class GanTrainState:
         self.step = int(sd["step"])
 
 
-def init_state(cfg, device: str | torch.device = "cuda") -> GanTrainState:
+def use_axis(state: GanTrainState, axis: DataAxis | None) -> GanTrainState:
+    """Run ``state``'s steps over ``axis`` (None: alone): every BatchNorm
+    of G, the Ds and the joint encoder syncs over it. Returns ``state``."""
+    state.axis = axis
+    for mod in (state.models.g, *state.models.ds, state.models.encoder):
+        if mod is not None:
+            set_batchnorm_axis(mod, axis)
+    return state
+
+
+def init_state(cfg, device: str | torch.device = "cuda", axis: DataAxis | None = None) -> GanTrainState:
     """Models of ``cfg`` on ``device`` in train mode with weights drawn from
     a ``torch.Generator`` seeded with ``cfg.SEED`` (the same weights on every
-    device), fresh optimizers and the EMA copy. In joint mode
-    (``TRAIN.JOINT_FT``) the encoder starts from the seeded init too;
-    ``train.loop.GanTrainer`` grafts a pretrained one (``TRAIN.NET_E``)."""
+    device), fresh optimizers and the EMA copy, stepping over ``axis``
+    (:func:`use_axis`). In joint mode (``TRAIN.JOINT_FT``) the encoder starts
+    from the seeded init too; ``train.loop.GanTrainer`` grafts a pretrained
+    one (``TRAIN.NET_E``)."""
     dev = resolve_device(device)
     joint = bool(cfg.TRAIN.JOINT_FT)
     models = build_models(cfg, joint)
@@ -286,7 +308,7 @@ def init_state(cfg, device: str | torch.device = "cuda") -> GanTrainState:
     d_opts = [make_optimizer(cfg, d.parameters(), float(cfg.TRAIN.DISCRIMINATOR_LR)) for d in models.ds]
     sc = StepConfig.from_cfg(cfg)
     ema = {n: p.detach().clone() for n, p in models.g.named_parameters()} if sc.ema_decay > 0 else {}
-    return GanTrainState(models, g_opt, d_opts, ema, sc)
+    return use_axis(GanTrainState(models, g_opt, d_opts, ema, sc), axis)
 
 
 def normalize_images(images, device: torch.device) -> tuple[torch.Tensor, ...]:
@@ -328,15 +350,22 @@ def wrong_pair_sources(class_id: torch.Tensor) -> torch.Tensor:
     return (ar - shift) % b
 
 
-def wrong_conditions(cond: torch.Tensor, class_id, mode: str) -> torch.Tensor:
-    """Conditions of the D's wrong-pair term (``TRAIN.WRONG_PAIR``)."""
+def wrong_conditions(cond: torch.Tensor, class_id, mode: str, axis: DataAxis | None = None) -> torch.Tensor:
+    """Conditions of the D's wrong-pair term (``TRAIN.WRONG_PAIR``), over
+    the global batch when ``axis`` splits it: the roll takes the previous
+    rank's last row, and the class-aware pick runs on the gathered
+    conditions and class ids, each rank keeping its rows. ``cond`` is
+    detached, so nothing crosses the ranks in the backward."""
     if mode == "roll":
-        return torch.roll(cond, 1, dims=0)
+        return torch.roll(cond, 1, dims=0) if axis is None else axis.global_roll1(cond)
     if mode != "class_aware":
         raise ValueError(f"unknown TRAIN.WRONG_PAIR {mode!r}")
     if class_id is None:
         raise ValueError("TRAIN.WRONG_PAIR=class_aware needs class_id in the batch")
-    return cond[wrong_pair_sources(class_id)]
+    if axis is None:
+        return cond[wrong_pair_sources(class_id)]
+    cond_g, cls_g = axis.all_gather(cond), axis.all_gather(class_id)
+    return cond_g[wrong_pair_sources(cls_g)][axis.rows(cond_g.shape[0])]
 
 
 def prepare_batch(state: GanTrainState, batch: dict) -> dict:
@@ -358,11 +387,16 @@ def prepare_batch(state: GanTrainState, batch: dict) -> dict:
 def step_noise(state: GanTrainState, b: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(z [B, Z_DIM], CA eps [B, EMBEDDING_DIM]) from a generator seeded
     with ``cfg.SEED`` and the step counter, so a run draws the same noise
-    each time it passes a step."""
+    each time it passes a step. Over a data axis ``b`` is the rank's rows:
+    every rank draws the global batch's noise and keeps its rows, so the
+    noise does not depend on how the batch is split (the JAX package keys
+    it per example instead; both are split-invariant)."""
     dev = state.device
+    n, r = (1, 0) if state.axis is None else (state.axis.size, state.axis.rank)
     gen = torch.Generator(device=dev).manual_seed(state.sc.seed * 2**32 + state.step)
-    z = torch.randn(b, state.sc.z_dim, generator=gen, device=dev)
-    return z, torch.randn(b, state.sc.c_dim, generator=gen, device=dev)
+    z = torch.randn(b * n, state.sc.z_dim, generator=gen, device=dev)
+    eps = torch.randn(b * n, state.sc.c_dim, generator=gen, device=dev)
+    return z[r * b:(r + 1) * b], eps[r * b:(r + 1) * b]
 
 
 @dataclasses.dataclass
@@ -391,7 +425,7 @@ def d_phase(state: GanTrainState, batch: dict, fwd: GForward) -> dict:
     backward over the sum, one optimizer step per D."""
     sc = state.sc
     cond = fwd.mu.detach()
-    cond_wrong = wrong_conditions(cond, batch.get("class_id"), sc.wrong_pair)
+    cond_wrong = wrong_conditions(cond, batch.get("class_id"), sc.wrong_pair, state.axis)
     if not sc.b_condition:
         cond = cond_wrong = None
     total = fwd.mu.new_zeros((), dtype=torch.float32)
@@ -406,6 +440,8 @@ def d_phase(state: GanTrainState, batch: dict, fwd: GForward) -> dict:
     for opt in state.d_opts:
         opt.zero_grad(set_to_none=True)
     total.backward()
+    if state.axis is not None:
+        state.axis.pmean_grads([p for d in state.models.ds for p in d.parameters()])
     for opt in state.d_opts:
         opt.step()
     return {"d_loss": total.detach(), **mets}
@@ -452,6 +488,8 @@ def g_phase(state: GanTrainState, batch: dict, fwd: GForward) -> dict:
     mets["g_loss"] = total.detach()
     state.g_opt.zero_grad(set_to_none=True)
     total.backward()
+    if state.axis is not None:
+        state.axis.pmean_grads([p for group in state.g_opt.param_groups for p in group["params"]])
     state.g_opt.step()
     if state.ema:
         decay = 0.0 if state.step < sc.ema_warmup else sc.ema_decay
@@ -466,7 +504,9 @@ def train_step(state: GanTrainState, batch: dict, z=None, eps=None,
     """One GAN step on a host batch ``{"images": (top scale or every scale,
     NHWC), "embedding" | "feats" + "feat_mask" + "teacher", "class_id"}``;
     updates ``state`` in place and returns the metrics as 0-d tensors on the
-    device. ``z`` / ``eps`` replace the step's own noise draw. ``mark(part)``,
+    device (averaged over the ranks under ``state.axis``, where ``batch`` is
+    the rank's rows). ``z`` / ``eps`` (the batch's rows) replace the step's
+    own noise draw. ``mark(part)``,
     when given, is called as each part ends (``"g_forward"``, ``"d_phase"``,
     ``"g_phase"``), e.g. to record a CUDA event there."""
     mark = mark or (lambda part: None)
@@ -483,14 +523,16 @@ def train_step(state: GanTrainState, batch: dict, z=None, eps=None,
     mets.update(g_phase(state, batch, fwd))
     mark("g_phase")
     state.step += 1
-    return mets
+    return mets if state.axis is None else state.axis.pmean_metrics(mets)
 
 
 def sampling_generator(state: GanTrainState) -> GNet:
     """A copy of G (CA included) in eval mode to sample from: the EMA
     weights when the state keeps an EMA (``TRAIN.EMA_G`` > 0), else G's own,
-    with G's running statistics. The state's G is left as it is."""
-    g = copy.deepcopy(state.models.g).requires_grad_(False)
+    with G's running statistics. The state's G is left as it is; the copy
+    syncs over no axis, so that every rank computes the whole of what it is
+    given (:func:`bn_recalc` runs replicated)."""
+    g = set_batchnorm_axis(copy.deepcopy(state.models.g).requires_grad_(False), None)
     if state.ema:
         with torch.no_grad():
             for name, p in g.named_parameters():

@@ -1,7 +1,12 @@
 """The trainer, the counterpart of ``s2i_tpu/train/loop.py``
-(``GanTrainer``) without the data mesh: it owns the train state, the
-checkpoints, the scalar log, the snapshot grids and the epoch loop, and
-leaves the step's math to ``train.gan.train_step``.
+(``GanTrainer``): it owns the train state, the checkpoints, the scalar log,
+the snapshot grids and the epoch loop, and leaves the step's math to
+``train.gan.train_step``. With ``mesh`` (a ``parallel.DataAxis``, the JAX
+trainer's data mesh) every rank runs the trainer: each steps on its rows of
+each global batch, rank 0 alone writes checkpoints, the progress file, the
+scalar log and the grids, every rank restores, and a stop (``max_steps``,
+SIGTERM on any rank) is agreed by all ranks. A checkpoint does not depend on
+the world size: a run on N ranks resumes in one process and the reverse.
 
     trainer = GanTrainer(cfg, run_dir, batch_factory)   # restores run_dir's latest checkpoint
     trainer.train(max_epoch=600)                         # total epochs; SIGTERM stops it cleanly
@@ -35,6 +40,7 @@ from s2i_tpu_torch.audio.frontend import featurize, frontend_params_from_cfg
 from s2i_tpu_torch.data.pipeline import Prefetcher
 from s2i_tpu_torch.device import resolve_device
 from s2i_tpu_torch.models.generator import GNet
+from s2i_tpu_torch.parallel import DataAxis, make_parallel_sample_fn, replicate_state
 from s2i_tpu_torch.train import gan
 from s2i_tpu_torch.utils import CheckpointManager, ScalarLogger, profile_steps, save_image_grid, save_images
 
@@ -52,21 +58,29 @@ class GanTrainer:
         image_every: int = 500,
         device: str | torch.device = "cuda",
         max_to_keep: int = 3,
+        mesh: DataAxis | None = None,
     ):
+        """``batch_factory(epoch)`` yields the batches this process steps
+        on: over a ``mesh``, this rank's rows of each global batch
+        (``cli.gan_batch_factory`` makes such a factory from global
+        batches)."""
         self.cfg = cfg
         self.output_dir = output_dir
         self.batch_factory = batch_factory
         self.log_every = log_every
         self.image_every = image_every
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.rank == 0
         self.joint = bool(cfg.TRAIN.JOINT_FT)
         self.p = frontend_params_from_cfg(cfg.AUDIO)
         os.makedirs(output_dir, exist_ok=True)
-        self.ckpt = CheckpointManager(os.path.join(output_dir, "ckpt"), max_to_keep)
-        self.logger = ScalarLogger(output_dir)  # TRAIN.TENSORBOARD: no event files (utils/logging.py)
-        self._viz_emb = None  # the first batch's first 8 embeddings, taken at the first grid
+        self.ckpt = CheckpointManager(os.path.join(output_dir, "ckpt"), max_to_keep, writer=self.writer)
+        # TRAIN.TENSORBOARD: no event files (utils/logging.py)
+        self.logger = ScalarLogger(output_dir, writer=self.writer)
+        self._viz_emb = None  # the first global batch's first 8 embeddings, taken at the first grid
 
-        self.state = gan.init_state(cfg, self.device)
+        self.state = gan.init_state(cfg, self.device, axis=mesh)
         # The place in the batch stream that the latest checkpoint was cut
         # at, so that a resume continues with the very next batch.
         self._progress = {"epoch": 0, "step_in_epoch": 0}
@@ -89,9 +103,11 @@ class GanTrainer:
             print(f"warm-started from {cfg.TRAIN.NET_G} step {self.state.step}")
         if self.joint and str(cfg.TRAIN.NET_E) and restored is None:
             self._graft_encoder(str(cfg.TRAIN.NET_E))
+        replicate_state(self.state, mesh)
         recalc = int(cfg.EVAL.EMA_BN_RECALC)
         self._recalc_batches = recalc if recalc > 0 and float(cfg.TRAIN.EMA_G) > 0 else 0
-        self._write_run_metadata()
+        if self.writer:
+            self._write_run_metadata()
 
     def eval_state(self, embeddings, seed: int = 0) -> GNet:
         """The G to sample from (eval mode, a copy): the EMA weights (when
@@ -99,7 +115,9 @@ class GanTrainer:
         under them (``gan.bn_recalc``, ``EVAL.EMA_BN_RECALC`` batches of
         ``TRAIN.BATCH_SIZE`` rows of ``embeddings``, draws from ``seed``), or
         with G's running statistics unchanged when ``EVAL.EMA_BN_RECALC`` is
-        0. The trainer's G is left as it is."""
+        0. The trainer's G is left as it is. Over a mesh every rank
+        re-estimates on the same draws (replicated, as the JAX trainer's
+        recalc is), so every rank holds the same G."""
         g = gan.sampling_generator(self.state)
         if self._recalc_batches:
             stats = gan.bn_recalc(self.state, embeddings, self._recalc_batches,
@@ -118,6 +136,7 @@ class GanTrainer:
             "torch_version": torch.__version__,
             "device": torch.cuda.get_device_name(self.device) if on_card else "cpu",
             "n_devices": torch.cuda.device_count() if on_card else 1,
+            "mesh_ranks": 1 if self.mesh is None else self.mesh.size,
             "perf_levers": None,  # the port computes one layout (train/gan.py)
             "params": {"generator+ca": count(m.g), "encoder": count(m.encoder),
                        "discriminators": [count(d) for d in m.ds]},
@@ -190,8 +209,9 @@ class GanTrainer:
         finished one does nothing) or the global step reaches ``max_steps``.
         Snapshots every ``TRAIN.SNAPSHOT_INTERVAL`` steps and once at the end,
         each with its place in the batch stream. SIGTERM (handled on the main
-        thread only) finishes the step, checkpoints and stops. Returns the
-        last step's metrics."""
+        thread only) finishes the step, checkpoints and stops; over a mesh
+        every rank stops after the step in which any rank saw it. Returns the
+        last step's metrics (averaged over the ranks)."""
         cfg = self.cfg
         max_epoch = max_epoch or int(cfg.TRAIN.MAX_EPOCH)
         snapshot = int(cfg.TRAIN.SNAPSHOT_INTERVAL)
@@ -243,7 +263,7 @@ class GanTrainer:
                             profiling.enter_context(profile_steps(profile_dir))
                         elif step == profile_at + PROFILE_STEPS:
                             profiling.close()
-                        imgs_done += b
+                        imgs_done += b * (1 if self.mesh is None else self.mesh.size)
                         if self.log_every and step % self.log_every == 0:
                             scalars = {k: float(v) for k, v in mets.items()}
                             scalars["images_per_sec"] = imgs_done / max(time.time() - t0, 1e-9)
@@ -253,13 +273,16 @@ class GanTrainer:
                             self._save_grid(step)
                         if snapshot and step % snapshot == 0:
                             self._save_checkpoint(step)
-                        if stop_requested or (max_steps is not None and step >= max_steps):
+                        stop = bool(stop_requested)
+                        if self.mesh is not None:
+                            stop = self.mesh.any(stop)  # no rank is left waiting in a collective
+                        if stop or (max_steps is not None and step >= max_steps):
                             stopped = True
                             break
                 finally:
                     batches.close()
                 if stopped:
-                    if stop_requested:
+                    if stop:
                         print(f"SIGTERM: checkpointing at step {step}")
                     break
                 if self._progress["step_in_epoch"] == 0:
@@ -274,21 +297,36 @@ class GanTrainer:
             profiling.close()
             if handler_installed:
                 signal.signal(signal.SIGTERM, prev_handler)
-        if self.ckpt.latest_step != step:
+        if not self.writer:
+            pass
+        elif self.ckpt.latest_step != step:
             self._save_checkpoint(step, force=True)
         else:
             # the checkpoint is current, but the progress may have rolled
             # over to the next epoch since it was cut
             self._write_progress(step)
+        if self.mesh is not None:
+            self.mesh.barrier()  # rank 0's checkpoint is on disk when train returns on any rank
         return {k: float(v) for k, v in mets.items()}
+
+    def _padded(self, emb: np.ndarray, rows: int) -> np.ndarray:
+        """``emb`` zero-padded to ``rows`` rows."""
+        pad = rows - emb.shape[0]
+        return np.concatenate([emb, np.zeros((pad, emb.shape[1]), emb.dtype)]) if pad else emb
 
     def _save_grid(self, step: int) -> None:
         if self._viz_emb is None:
-            self._viz_emb = torch.as_tensor(next(iter(self.batch_factory(0)))["embedding"][:8]).float()
-        imgs = gan.sample(self.eval_state(self._viz_emb, seed=42), self._viz_emb, seed=42)
-        grid = save_image_grid(imgs[-1].permute(0, 2, 3, 1).cpu().numpy(),
-                               os.path.join(self.output_dir, "images", f"fake_{step:07d}.png"))
-        self.logger.log_image(step, "samples", grid)
+            emb = torch.as_tensor(next(iter(self.batch_factory(0)))["embedding"]).float()
+            if self.mesh is not None:
+                emb = self.mesh.all_gather(emb.to(self.device)).cpu()  # the global batch's rows
+            self._viz_emb = emb[:8].numpy()
+        n, m = self._viz_emb.shape[0], 1 if self.mesh is None else self.mesh.size
+        sample = make_parallel_sample_fn(self.eval_state(self._viz_emb, seed=42), self.mesh)
+        imgs = sample(self._padded(self._viz_emb, -(-n // m) * m), seed=42)
+        if self.writer:
+            grid = save_image_grid(imgs[-1][:n].permute(0, 2, 3, 1).cpu().numpy(),
+                                   os.path.join(self.output_dir, "images", f"fake_{step:07d}.png"))
+            self.logger.log_image(step, "samples", grid)
 
     def sample_to_dir(self, embeddings, out_dir: str, names: list[str] | None = None,
                       samples_per_emb: int = 1, batch_size: int = 32, seed: int = 0) -> None:
@@ -296,7 +334,9 @@ class GanTrainer:
         several samples per embedding, ``out_dir/<s>/<name>.png``), from
         :meth:`eval_state`'s G, ``batch_size`` at a time. Sample s of
         embedding i draws its z from (``seed + s``, i), so an image depends on
-        neither the batch size nor the padding of the last batch."""
+        neither the batch size nor the padding of the last batch. Over a
+        mesh the batch is rounded up to a multiple of the world size, each
+        rank samples its rows, and rank 0 writes the PNGs."""
         if not self._recalc_batches and float(self.cfg.TRAIN.EMA_G) > 0:
             warnings.warn(
                 "Sampling EMA params with EVAL.EMA_BN_RECALC=0: BatchNorm running stats were "
@@ -308,18 +348,20 @@ class GanTrainer:
         embeddings = np.asarray(embeddings, np.float32)
         n = embeddings.shape[0]
         names = names or [f"{i:06d}" for i in range(n)]
-        g = self.eval_state(embeddings, seed=seed)
+        m = 1 if self.mesh is None else self.mesh.size
+        batch_size = -(-batch_size // m) * m
+        sample = make_parallel_sample_fn(self.eval_state(embeddings, seed=seed), self.mesh)
         for s in range(samples_per_emb):
             outs = []
             for i in range(0, n, batch_size):
                 e = embeddings[i: i + batch_size]
-                pad = batch_size - e.shape[0]
-                if pad:
-                    e = np.concatenate([e, np.zeros((pad, e.shape[1]), e.dtype)])
-                top = gan.sample(g, e, seed=seed + s, offset=i)[-1]
-                outs.append(top[: batch_size - pad].permute(0, 2, 3, 1).cpu().numpy())
-            save_images(np.concatenate(outs), out_dir if samples_per_emb == 1 else os.path.join(out_dir, str(s)),
-                        [f"{nm}.png" for nm in names])
+                top = sample(self._padded(e, batch_size), seed=seed + s, offset=i)[-1]
+                outs.append(top[: e.shape[0]].permute(0, 2, 3, 1).cpu().numpy())
+            if self.writer:
+                save_images(np.concatenate(outs), out_dir if samples_per_emb == 1 else os.path.join(out_dir, str(s)),
+                            [f"{nm}.png" for nm in names])
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def close(self) -> None:
         self.ckpt.close()

@@ -6,7 +6,8 @@ the state's ``state_dict()`` returns (nested dicts and lists of tensors and
 Python scalars) with every tensor copied to the host first, so a checkpoint
 written on the card restores on the CPU and the reverse. A save writes
 ``<step>.pt.tmp`` and renames it into place: a torn write is never taken for
-the latest checkpoint. The newest ``max_to_keep`` are kept.
+the latest checkpoint. The newest ``max_to_keep`` are kept. Over a data
+axis rank 0 alone writes (``writer``); every rank restores.
 
 Saves are synchronous: the JAX package's Orbax saves run in the background,
 but at ``TRAIN.SNAPSHOT_INTERVAL`` 2000 a save is a small share of a run
@@ -51,13 +52,15 @@ def load_optimizer(opt: torch.optim.Optimizer, sd: dict, what: str) -> None:
 
 
 class CheckpointManager:
-    """Checkpoints of one state in ``directory``, by step."""
+    """Checkpoints of one state in ``directory``, by step. A manager that
+    is not the ``writer`` (a rank other than 0) reads and never writes."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, writer: bool = True):
         if max_to_keep < 1:
             raise ValueError(f"max_to_keep must be at least 1, got {max_to_keep}")
         self._dir = os.path.abspath(directory)
         self._keep = max_to_keep
+        self.writer = writer
         os.makedirs(self._dir, exist_ok=True)
 
     def steps(self) -> list[int]:
@@ -77,7 +80,10 @@ class CheckpointManager:
         """Write ``state`` (an object with ``state_dict()``, or the dict
         itself) as the checkpoint of ``step``. A step no newer than the
         latest checkpoint is written only with ``force`` (as Orbax's
-        ``should_save``); returns whether it was written."""
+        ``should_save``); returns whether it was written (never by a
+        manager that is not the writer)."""
+        if not self.writer:
+            return False
         latest = self.latest_step
         if latest is not None and step <= latest and not force:
             return False

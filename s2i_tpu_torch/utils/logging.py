@@ -23,13 +23,18 @@ import torch
 class ScalarLogger:
     """JSONL scalars, one line per ``log`` call: ``{"step", "time", **scalars}``
     in ``<run_dir>/scalars.jsonl``. Non-finite values are written as
-    strings: bare NaN/Infinity tokens are not valid JSON."""
+    strings: bare NaN/Infinity tokens are not valid JSON. A logger that is
+    not the ``writer`` (a rank other than 0) writes nothing."""
 
-    def __init__(self, run_dir: str):
-        os.makedirs(run_dir, exist_ok=True)
-        self._f = open(os.path.join(run_dir, "scalars.jsonl"), "a", buffering=1)
+    def __init__(self, run_dir: str, writer: bool = True):
+        self._f = None
+        if writer:
+            os.makedirs(run_dir, exist_ok=True)
+            self._f = open(os.path.join(run_dir, "scalars.jsonl"), "a", buffering=1)
 
     def log(self, step: int, scalars: dict[str, Any]) -> None:
+        if self._f is None:
+            return
         rec = {"step": int(step), "time": time.time()}
         rec.update({k: (f if math.isfinite(f) else str(f))
                     for k, v in scalars.items() for f in (float(v),)})
@@ -40,7 +45,8 @@ class ScalarLogger:
         files this does nothing (the PNG on disk is the sink)."""
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 @contextlib.contextmanager
