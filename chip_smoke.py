@@ -151,7 +151,18 @@ Phases, each of which passes or raises (nothing is caught):
                scipy's sqrtm; then on the data phase's tree (deleted
                after this phase) the eval, eval --retrieval,
                finetune-inception (1 epoch, 299 px, batch 32) and eval
-               --finetuned_ckpt commands, and the finetune step's ms.
+               --finetuned_ckpt commands, and the finetune step's ms;
+ 13. cert    - the quality-certification harness (s2i_tpu_torch/scripts/)
+               at full birds width in the cfgs' bfloat16 on a seeded
+               fixture of 4 classes x 4 images x 2 captions: quality_cert
+               (cfg/birds_3stages.yml, BN recalc), encoder_quality_cert,
+               joint_quality_cert (a 1-epoch pretrain, then the joint cfg
+               with NET_E), posthoc_quality_eval of the quality run, each
+               with 2 training steps, an eval after each and a 1-epoch
+               Inception finetune at 299 px, then eval_smoke (the port's
+               commands in subprocesses); every record finite, K3 once per
+               training step and none in the quality cert, each cert's
+               seconds and K1/K2/K3 launches.
 The last lines are a JSON record of the kernels, the card as nvidia-smi
 names it, and {"ok": true, "device": {...}}.
 """
@@ -210,6 +221,8 @@ from s2i_tpu_torch.models.layers import BatchNorm, Conv2d
 from s2i_tpu_torch.ops import build, gru_kernel, mel_kernel
 from s2i_tpu_torch.pipeline import SpeechToImage, build_encoder, build_generator
 from s2i_tpu_torch.port import port_encoder
+from s2i_tpu_torch.scripts import (encoder_quality_cert, eval_smoke, joint_quality_cert, posthoc_quality_eval,
+                                   quality_cert)
 from s2i_tpu_torch.serving import make_server
 from s2i_tpu_torch.train import encoder as encoder_train
 from s2i_tpu_torch.train import gan
@@ -251,6 +264,9 @@ FINETUNE_STEPS = 6  # timed finetune steps, after 2 of warm-up
 AB_SHAPE = (8, 64000)  # scripts/perf_cert.py::cert_mel's wav batch
 FLUSH_BYTES = 256 << 20  # written between launches of a cold timing: five times the H100's 50 MB L2
 EXPORT_BATCHES = (1, BATCH)  # the artifact's batch sizes, scripts/export.py's default
+CERT_FIXTURE = ("--classes", "4", "--per_class", "4", "--captions", "2")  # the cert phase's fixture
+CERT_STEPS = 2  # training steps of each cert, an eval after each
+CERT_BATCH = 8  # GAN and encoder batch of the cert phase: its train splits hold 8 (test_per_class 2) to 12 images
 
 # kernel name → (wrapper whose .launches counts it, source, the TPU kernel it replaces)
 KERNELS = {
@@ -2506,6 +2522,78 @@ def phase_eval(card: str, data: dict[str, str]) -> dict[str, int]:
     return counts
 
 
+def finite_records(path: str) -> list[dict]:
+    """The JSON lines of ``path``; raises on a number that is not finite."""
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    bad = [(r.get("step"), k) for r in recs for k, v in r.items() if isinstance(v, float) and not math.isfinite(v)]
+    if not recs or bad:
+        raise AssertionError(f"{path}: {len(recs)} records, non-finite {bad[:5]}")
+    return recs
+
+
+def phase_cert(card: str) -> dict[str, int]:
+    """The quality-certification harness (s2i_tpu_torch/eval/cert.py,
+    s2i_tpu_torch/scripts/) at full birds width in the cfgs' bfloat16 on a
+    fixture of 4 classes x 4 images x 2 captions: each cert's main with
+    CERT_STEPS training steps and an eval after each, a 1-epoch Inception
+    finetune at 299 px: quality (cfg/birds_3stages.yml, BN recalc), encoder
+    (cfg/pretrain_encoder_birds.yml), joint (1 pretrain epoch, then
+    cfg/birds_joint_ft.yml with NET_E), posthoc on the quality run, then
+    eval_smoke (the port's commands in subprocesses, cfg/debug_tiny.yml).
+    Every record finite; K1/K2/K3 launches per cert, K3 one per training
+    step (the joint cert's pretrain steps included), none in the quality
+    cert; each cert's seconds."""
+    t_phase = time.time()
+    os.makedirs("output", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_cert_", dir="output")
+    q, e, j = (os.path.join(root, name) for name in ("quality", "encoder", "joint"))
+    batch = [f"TRAIN.BATCH_SIZE={CERT_BATCH}", f"ENCODER.BATCH_SIZE={CERT_BATCH}"]
+    steps = ("--steps", str(CERT_STEPS), "--eval_every", "1")
+    certs = {
+        "quality": (quality_cert.main, ["--out", q, *CERT_FIXTURE, *steps, "--inc_epochs", "1", "--eval_batch",
+                                        str(CERT_BATCH), "--ema_bn_recalc", "2", "--set", *batch]),
+        "encoder": (encoder_quality_cert.main, ["--out", e, *CERT_FIXTURE, *steps, "--set", *batch]),
+        "joint": (joint_quality_cert.main, ["--out", j, *CERT_FIXTURE, *steps, "--pretrain_epochs", "1",
+                                            "--inc_epochs", "1", "--eval_batch", str(CERT_BATCH), "--set", *batch]),
+        "posthoc": (posthoc_quality_eval.main, ["--run", q, "--classes", "4", "--eval_batch", str(CERT_BATCH),
+                                                "--ema_bn_recalc", "2", "--set", *batch]),
+        "eval_smoke": (eval_smoke.main, ["--out", os.path.join(root, "eval_smoke")]),
+    }
+    counts, secs = {}, {}
+    try:
+        for name, (main, argv) in certs.items():
+            reset_counts()
+            t0 = time.time()
+            out = main(argv)
+            torch.cuda.synchronize()
+            secs[name], counts[name] = time.time() - t0, read_counts()
+            if name in ("quality", "encoder", "joint"):
+                recs = finite_records(os.path.join(root, name, "results.jsonl"))
+                if [r["step"] for r in recs if "step" in r] != list(range(CERT_STEPS + 1)):
+                    raise AssertionError(f"[cert] {name}: points at steps {[r.get('step') for r in recs]}")
+            elif not all(math.isfinite(v) for v in out.values() if isinstance(v, float)):
+                raise AssertionError(f"[cert] {name}: {out}")
+            log(f"[cert] {card}: {name} {secs[name]:.1f} s, launches {counts[name]}; "
+                + json.dumps({k: v for k, v in out.items() if k != "curve"}))
+        with open(os.path.join(j, "encoder", "train_progress.json")) as f:
+            pretrain_steps = json.load(f)["step"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want_k3 = {"quality": 0, "encoder": CERT_STEPS, "joint": pretrain_steps + CERT_STEPS, "posthoc": 0,
+               "eval_smoke": 0}
+    by_cert = {k: {name: c[k] for name, c in counts.items()} for k in KERNELS}
+    log(f"[cert] {card}: K3 launches {by_cert['gru_bwd']} (one per training step: {want_k3}); K1 "
+        f"{by_cert['mel_fused']}, K2 {by_cert['gru_fwd']}; seconds {({n: round(t, 1) for n, t in secs.items()})}")
+    if by_cert["gru_bwd"] != want_k3 or any(by_cert["mel_framed"].values()):
+        raise AssertionError(f"[cert] launches {counts}, K3 expected {want_k3}")
+    if not (counts["encoder"]["mel_fused"] and counts["encoder"]["gru_fwd"] and counts["joint"]["mel_fused"]
+            and counts["joint"]["gru_fwd"]):
+        raise AssertionError(f"[cert] the encoder and joint certs launched no K1 or K2: {counts}")
+    log(f"[cert] phase took {time.time() - t_phase:.1f} s")
+    return {k: sum(c[k] for c in counts.values()) for k in KERNELS}
+
+
 def dtype_audit(models: gan.GanModels, run) -> dict[str, set]:
     """The output types of ``models`` during ``run()``, by point: G's and
     the Ds' conv and BN outputs, the images (to-RGB), the logits, the
@@ -2739,6 +2827,7 @@ def main() -> None:
         paths["eval"] = phase_eval(card, made)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    paths["cert"] = phase_cert(card)
     rows = []
     for kname, (_, src, replaces) in KERNELS.items():
         by_path = {path: counts[kname] for path, counts in paths.items()}

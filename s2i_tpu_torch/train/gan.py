@@ -526,14 +526,15 @@ def train_step(state: GanTrainState, batch: dict, z=None, eps=None,
     return mets if state.axis is None else state.axis.pmean_metrics(mets)
 
 
-def sampling_generator(state: GanTrainState) -> GNet:
+def sampling_generator(state: GanTrainState, use_ema: bool = True) -> GNet:
     """A copy of G (CA included) in eval mode to sample from: the EMA
-    weights when the state keeps an EMA (``TRAIN.EMA_G`` > 0), else G's own,
-    with G's running statistics. The state's G is left as it is; the copy
-    syncs over no axis, so that every rank computes the whole of what it is
-    given (:func:`bn_recalc` runs replicated)."""
+    weights when the state keeps an EMA (``TRAIN.EMA_G`` > 0) and
+    ``use_ema``, else G's own (the raw G, ``make_sample_fn(...,
+    use_ema=False)``), with G's running statistics. The state's G is left
+    as it is; the copy syncs over no axis, so that every rank computes the
+    whole of what it is given (:func:`bn_recalc` runs replicated)."""
     g = set_batchnorm_axis(copy.deepcopy(state.models.g).requires_grad_(False), None)
-    if state.ema:
+    if state.ema and use_ema:
         with torch.no_grad():
             for name, p in g.named_parameters():
                 p.copy_(state.ema[name])

@@ -76,7 +76,10 @@ def test_port_imports_with_jax_blocked():
         "import s2i_tpu_torch.train.gan, s2i_tpu_torch.models.discriminator\n"
         "import s2i_tpu_torch.train.loop, s2i_tpu_torch.utils.checkpoint\n"
         "import s2i_tpu_torch.eval, s2i_tpu_torch.eval.finetune, s2i_tpu_torch.eval.weights\n"
-        "import s2i_tpu_torch.port, s2i_tpu_torch.entrypoints\n"
+        "import s2i_tpu_torch.port, s2i_tpu_torch.entrypoints, s2i_tpu_torch.eval.cert\n"
+        "import s2i_tpu_torch.scripts.quality_cert, s2i_tpu_torch.scripts.encoder_quality_cert\n"
+        "import s2i_tpu_torch.scripts.joint_quality_cert, s2i_tpu_torch.scripts.posthoc_quality_eval\n"
+        "import s2i_tpu_torch.scripts.eval_smoke, s2i_tpu_torch.scripts.workflow_cert\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
