@@ -120,6 +120,11 @@ Phases, each of which passes or raises (nothing is caught):
                phase's WAVs through SpeechToImage.from_checkpoints of the
                run, bitwise equal to a pipeline of the trainer's in-memory
                EMA state; K1, K2 and K3 once per step, K1 and K2 per serve;
+               with TRAIN.TENSORBOARD on, the straight run's event file
+               read back by utils/logging.read_events (every checksum, the
+               tags, steps and float32 values of its scalars.jsonl, its
+               sample grid at step 4 equal to the grid PNG) and the event
+               writer's host cost on a step's scalars and on the grid;
  11. data    - the real-data path through the port's CLI at full birds
                width, in the cfgs' bfloat16: a StackGAN tree made from SEED
                (tools_torch/make_fixture_dataset.py: 8 classes x 7 images
@@ -135,7 +140,15 @@ Phases, each of which passes or raises (nothing is caught):
                loaders' host rates, the wav batch's copy pageable against
                pinned, and windows of encoder and GAN steps on made-ahead
                and loader batches through the pinned prefetch, with the
-               device's idle share between steps;
+               device's idle share between steps; DATA.PIPELINE grain
+               (data/grain_pipeline.py): two epochs at GRAIN_WORKERS 0 and
+               2 bitwise equal and their images/s, then train
+               birds_3stages through entrypoints.main on grain batches (2
+               forked decode workers, 20 steps, TRAIN.TENSORBOARD: the
+               event file read back against scalars.jsonl), and the tools
+               tools_torch/validate_data.py (exit 0), inspect_ckpt.py (the
+               grain run's element total) and synthesize_speech.py --tone
+               (WAVs read back), each a process of its own;
  12. eval    - the evaluation layer (s2i_tpu_torch/eval/, no kernel of
                its own): InceptionV3 at 299 px in float32 with seeded
                weights, BN scale and bias randomized and BN statistics
@@ -203,8 +216,9 @@ from s2i_tpu_torch.audio.frontend import (
     frontend_params_from_cfg,
     preemphasize,
 )
-from s2i_tpu_torch.audio.wavio import write_wav
+from s2i_tpu_torch.audio.wavio import read_wav, write_wav
 from s2i_tpu_torch.data import SyntheticGanDataset, synthetic_wavs
+from s2i_tpu_torch.data.grain_pipeline import grain_batches
 from s2i_tpu_torch.data.pipeline import Prefetcher
 from s2i_tpu_torch.data.stackgan import GanEpochIterator, SpeechEpochIterator, StackGanSplit
 from s2i_tpu_torch.device import compute_dtype, resolve_device
@@ -231,7 +245,8 @@ from s2i_tpu_torch.train.encoder import encoder_train_step, init_encoder_state
 from s2i_tpu_torch.train.losses import distillation_loss
 from s2i_tpu_torch.utils import CheckpointManager
 from s2i_tpu_torch.utils.checkpoint import to_host
-from tools_torch.make_fixture_dataset import make_fixture
+from s2i_tpu_torch.utils.logging import EventWriter, read_events
+from tools_torch.make_fixture_dataset import make_fixture, tone_synthesize
 
 # NVIDIA H100 SXM data sheet (700 W): fp32 and fp64 without tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
@@ -255,6 +270,8 @@ DATA_IMAGE_PX = 500  # CUB's photos are about 500 px on the long side
 DATA_WAV_SAMPLES = (3000, 164080)  # up to the longest utterance the birds frontend takes
 DATA_STEPS = 14  # timed encoder steps of each data-phase window
 DATA_GAN_STEPS = 10  # timed GAN steps of each data-phase window
+GRAIN_WORKERS = 2  # DATA.GRAIN_WORKERS of the data phase's grain loader and run
+GRAIN_EPOCHS = 10  # epochs of the grain run: 20 steps, the trainer's log_every, so that it logs once
 EVAL_IMAGES = 1024  # G images of each set the eval phase scores
 EVAL_GEN_BATCH = 24  # TRAIN.BATCH_SIZE of cfg/birds_3stages.yml
 EVAL_SPLITS = 10  # the StackGAN IS protocol's splits
@@ -329,6 +346,8 @@ TOL_ARTIFACT_PIXELS = 1e-3
 # step medians (ms) of the train, gan and joint phases on batches made ahead
 # in host memory, for the data phase to print beside its loader-fed steps
 MADE_AHEAD_MS: dict[str, float] = {}
+ADDED_S: dict[str, float] = {}  # seconds of the grain, TensorBoard and tools checks, by phase
+REPO = os.path.dirname(os.path.abspath(__file__))
 # the float32 phases' results, for the bf16 phase: each path's times, parts
 # and peak memory ("serve", "train", "gan", "joint"), the serve phase's
 # weights, batch and CPU images ("serve_ref"), the gan phase's CPU float32
@@ -1941,12 +1960,69 @@ def phase_ckpt(card: str) -> dict[str, int]:
     return launches
 
 
+def check_events(run_dir: str) -> tuple[list[dict], list[dict]]:
+    """The event file of ``run_dir/tb`` read back with the port's own reader
+    (every checksum checked): its scalars must be those of
+    ``scalars.jsonl`` (tags, steps, float32 values) and each image summary
+    the grid PNG of its step. Returns (scalar records, image records)."""
+    (name,) = os.listdir(os.path.join(run_dir, "tb"))
+    recs = read_events(os.path.join(run_dir, "tb", name))
+    if recs[0].get("file_version") != "brain.Event:2":
+        raise AssertionError(f"{name}: first record {recs[0]}")
+    got = [(r["step"], v["tag"], v["simple_value"]) for r in recs[1:] for v in r["values"] if "image" not in v]
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        jsonl = [json.loads(line) for line in f]
+    want = [(r["step"], k, float(np.float32(float(v)))) for r in jsonl for k, v in r.items()
+            if k not in ("step", "time")]
+    same = len(got) == len(want) and all(g[:2] == w[:2] and np.array_equal(g[2], w[2], equal_nan=True)
+                                         for g, w in zip(got, want))
+    if not (same and got):
+        raise AssertionError(f"{name}: {len(got)} scalars against {len(want)} in scalars.jsonl, or they differ")
+    images = [(r["step"], v) for r in recs for v in r.get("values", []) if "image" in v]
+    for step, v in images:
+        with Image.open(io.BytesIO(v["image"]["png"])) as im, \
+                Image.open(os.path.join(run_dir, "images", f"fake_{step:07d}.png")) as grid:
+            if not np.array_equal(np.asarray(im), np.asarray(grid)):
+                raise AssertionError(f"{name}: the image of step {step} is not its grid PNG")
+    return got, images
+
+
+def loop_events(card: str, run_dir: str, steps: int) -> None:
+    """The loop phase's event file checked (:func:`check_events`: one grid,
+    at ``steps``), and the event writer's host cost on the same records."""
+    t_check = time.time()
+    got, images = check_events(run_dir)
+    if [(s, v["tag"]) for s, v in images] != [(steps, "samples")]:
+        raise AssertionError(f"event images {[(s, v['tag']) for s, v in images]}: not one grid at step {steps}")
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        last = {k: v for k, v in json.loads(f.readlines()[-1]).items() if k not in ("step", "time")}
+    with Image.open(os.path.join(run_dir, "images", f"fake_{steps:07d}.png")) as im:
+        grid = np.asarray(im)
+    with tempfile.TemporaryDirectory(dir=run_dir) as d:
+        w = EventWriter(d)
+        t0 = time.perf_counter()
+        for i in range(100):
+            w.scalars(i, last)
+        scalar_us = 1e6 * (time.perf_counter() - t0) / 100
+        t0 = time.perf_counter()
+        w.image(steps, "samples", grid)
+        image_ms = 1e3 * (time.perf_counter() - t0)
+        w.close()
+    log(f"[loop] {card}: TRAIN.TENSORBOARD event file read back: {len(got)} scalars of {steps} steps equal "
+        f"to scalars.jsonl (float32), every checksum valid, the grid of step {steps} "
+        f"({len(images[0][1]['image']['png'])} PNG bytes, {grid.shape}) equal to its PNG; host cost of the "
+        f"writer: {scalar_us:.1f} us a logged step ({len(last)} scalars), {image_ms:.1f} ms a grid (PIL PNG "
+        f"encode and a pure-Python CRC-32C)")
+    ADDED_S["loop"] = time.time() - t_check
+
+
 def phase_loop(card: str) -> dict[str, int]:
     """The trainer loop of cfg/birds_joint_ft.yml at full width and batch
     GAN_BATCH, in a temporary run directory deleted at the end: resume,
     checkpoints, BN recalc, sampling, and serving the run's checkpoint."""
     cfg = gan_cfg("cfg/birds_joint_ft.yml", GAN_BATCH)  # the cfg's own DTYPE.COMPUTE, bfloat16
     cfg.TRAIN.MOMENT_DTYPE = "bfloat16"  # the resume covers Adam's bfloat16 moments too
+    cfg.TRAIN.TENSORBOARD = True  # event files beside scalars.jsonl
     p = frontend_params_from_cfg(cfg.AUDIO)
     recalc = int(cfg.EVAL.EMA_BN_RECALC)
     factory = cli.gan_batch_factory(cfg)
@@ -1956,17 +2032,18 @@ def phase_loop(card: str) -> dict[str, int]:
     try:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
 
-        def run(name: str, max_steps: int) -> GanTrainer:
-            t = GanTrainer(cfg, os.path.join(root, name), factory, log_every=1, image_every=0, device="cuda",
-                           max_to_keep=1)
+        def run(name: str, max_steps: int, image_every: int = 0) -> GanTrainer:
+            t = GanTrainer(cfg, os.path.join(root, name), factory, log_every=1, image_every=image_every,
+                           device="cuda", max_to_keep=1)
             t.train(max_steps=max_steps)
             t.close()
             return t
 
-        # the path, counted from zero: 4 steps straight; 2, a stop and 2 more
+        # the path, counted from zero: 4 steps straight (a sample grid at the
+        # last, mirrored into the event file); 2, a stop and 2 more
         reset_counts()
         t0 = time.time()
-        straight = run("straight", LOOP_STEPS)
+        straight = run("straight", LOOP_STEPS, image_every=LOOP_STEPS)
         want = to_host(straight.state.state_dict())
         t1 = time.time()
         half = run("stopped", LOOP_STEPS // 2).state.step
@@ -2016,6 +2093,7 @@ def phase_loop(card: str) -> dict[str, int]:
             f"trip bitwise {round_trip}")
         shutil.rmtree(os.path.join(root, "stopped"))
         del resumed
+        loop_events(card, os.path.join(root, "straight"), LOOP_STEPS)
 
         # BN recalc under the EMA, then sampling, from the straight run
         emb = SyntheticGanDataset(branch_num=int(cfg.TREE.BRANCH_NUM), base_size=int(cfg.TREE.BASE_SIZE),
@@ -2152,6 +2230,97 @@ def only_run(out: str, prefix: str) -> str:
     return os.path.join(out, name)
 
 
+def grain_loader(card: str, split: StackGanSplit, cfg) -> None:
+    """DATA.PIPELINE grain's loader alone on the data tree: two epochs at
+    GRAIN_WORKERS 0 and 2 must be bitwise equal; prints each one's host
+    images/s beside the GanEpochIterator rates above."""
+    epochs, rates, first_ms = {}, {}, {}
+    for workers in (0, GRAIN_WORKERS):
+        epochs[workers], firsts = [], []
+        t0 = time.perf_counter()
+        for e in range(2):
+            t1 = time.perf_counter()
+            for b in grain_batches(split, GAN_BATCH, int(cfg.TREE.BRANCH_NUM), int(cfg.TREE.BASE_SIZE),
+                                   seed=SEED + e, num_workers=workers, image_dtype=str(cfg.DATA.IMAGE_DTYPE),
+                                   ship_scales=str(cfg.DATA.SHIP_SCALES)):
+                if len(epochs[workers]) == e * (DATA_TRAIN // GAN_BATCH):
+                    firsts.append(1e3 * (time.perf_counter() - t1))
+                epochs[workers].append(b)
+        rates[workers] = sum(len(b["embedding"]) for b in epochs[workers]) / (time.perf_counter() - t0)
+        first_ms[workers] = float(np.mean(firsts))
+    same = len(epochs[0]) == len(epochs[GRAIN_WORKERS]) == 2 * (DATA_TRAIN // GAN_BATCH) and all(
+        np.array_equal(a, b) for x, y in zip(epochs[0], epochs[GRAIN_WORKERS])
+        for a, b in [*zip(x["images"], y["images"]), (x["embedding"], y["embedding"]), (x["class_id"], y["class_id"])])
+    log(f"[data] {card}: grain loader alone (data/grain_pipeline.py, Grain's order, PIL decode, batch {GAN_BATCH}, "
+        f"{cfg.DATA.IMAGE_DTYPE} {cfg.DATA.SHIP_SCALES} scale, two epochs rebuilt per epoch): GRAIN_WORKERS 0 "
+        f"{rates[0]:.1f} images/s, {GRAIN_WORKERS} forked workers {rates[GRAIN_WORKERS]:.1f} images/s; an "
+        f"epoch's first batch after {first_ms[0]:.1f} and {first_ms[GRAIN_WORKERS]:.1f} ms (the workers' fork "
+        f"from this process, which holds the card, included); the two bitwise equal {same}")
+    if not same:
+        raise AssertionError("grain batches differ between 0 and 2 workers")
+
+
+def grain_train_and_tools(card: str, tree: str, root: str, counted) -> float:
+    """``train`` of cfg/birds_3stages.yml through entrypoints.main (``counted``)
+    on DATA.PIPELINE grain with GRAIN_WORKERS decode processes forked after
+    CUDA is up and TRAIN.TENSORBOARD on, for GRAIN_EPOCHS epochs (the
+    trainer logs every 20th step): its checkpoint finite and its event file
+    read back against its scalars.jsonl; then the three tools_torch
+    commands in processes of their own. Returns the seconds taken."""
+    t0 = time.time()
+    out = os.path.join(root, "grain_runs")
+    _, train_s = counted("grain", ["train", "--cfg", "cfg/birds_3stages.yml", "--set", "DATA.PIPELINE=grain",
+                                   f"DATA.GRAIN_WORKERS={GRAIN_WORKERS}", "TRAIN.TENSORBOARD=True",
+                                   f"TRAIN.MAX_EPOCH={GRAIN_EPOCHS}"], out=out)
+    run = only_run(out, "birds_3stages_train_")
+    ckpt = os.path.join(run, "ckpt")
+    steps = GRAIN_EPOCHS * (DATA_TRAIN // GAN_BATCH)
+    if finite_checkpoint(ckpt) != steps:
+        raise AssertionError(f"{run}: not {steps} steps")
+    scalars, _ = check_events(run)
+    total = sum(v.numel() for v in flat_state(CheckpointManager(ckpt).restore_latest_raw()[0]).values()
+                if torch.is_tensor(v))
+    log(f"[data] {card}: train birds_3stages on DATA.PIPELINE grain ({GRAIN_WORKERS} forked workers, "
+        f"TRAIN.TENSORBOARD) through entrypoints.main: {steps} steps in {train_s:.1f} s (init and checkpoint "
+        f"included), event file read back: {len(scalars)} scalars equal to scalars.jsonl, every checksum valid")
+
+    def tool(*argv: str) -> tuple[str, float]:
+        t1 = time.time()
+        res = subprocess.run([sys.executable, os.path.join(REPO, argv[0]), *argv[1:]], capture_output=True,
+                             text=True, timeout=300)
+        if res.returncode:
+            raise AssertionError(f"{argv[0]} exited {res.returncode}: {res.stderr[-2000:]}")
+        return res.stdout, time.time() - t1
+
+    report, validate_s = tool("tools_torch/validate_data.py", "--data_dir", tree)
+    if not all(r["ok"] and not r["problems"] for r in json.loads(report)):
+        raise AssertionError(f"validate_data: {report}")
+    listing, inspect_s = tool("tools_torch/inspect_ckpt.py", "--ckpt", ckpt)
+    if not listing.rstrip().endswith(f"({total} elements)") or f"steps: [{steps}]" not in listing:
+        raise AssertionError(f"inspect_ckpt printed {listing!r}, the state holds {total} elements")
+    synth = os.path.join(root, "synth")
+    names = {"train": ["a/x", "a/y"], "test": ["b/z"]}
+    captions = {"a/x": ["a small bird with a red crown", "white belly"], "a/y": ["yellow wings"], "b/z": ["tiny"]}
+    for split_name, files in names.items():
+        os.makedirs(os.path.join(synth, split_name))
+        with open(os.path.join(synth, split_name, "filenames.pickle"), "wb") as f:
+            pickle.dump(files, f)
+    with open(os.path.join(synth, "captions.json"), "w") as f:
+        json.dump(captions, f)
+    _, synth_s = tool("tools_torch/synthesize_speech.py", "--data_dir", synth, "--tone", "--captions",
+                      os.path.join(synth, "captions.json"))
+    for name, caps in captions.items():
+        for k, text in enumerate(caps):
+            x, sr = read_wav(os.path.join(synth, "audio", name, f"{k}.wav"))
+            pcm16 = (np.clip(tone_synthesize(text, 16000, 48000), -1, 1) * 32767.0).astype(np.int16) / 32768.0
+            if sr != 16000 or not np.array_equal(x, pcm16.astype(np.float32)):
+                raise AssertionError(f"synthesize_speech: {name}/{k}.wav is not the tone of {text!r}")
+    log(f"[data] {card}: tools_torch: validate_data exit 0 ({validate_s:.1f} s), inspect_ckpt of the grain run "
+        f"{total} elements ({inspect_s:.1f} s), synthesize_speech --tone 4 WAVs read back equal to the tone "
+        f"({synth_s:.1f} s); each a process of its own")
+    return time.time() - t0
+
+
 def phase_data(card: str, root: str) -> tuple[dict[str, int], dict[str, str]]:
     """The real-data path through the port's CLI at full birds width, on a
     StackGAN tree made from SEED (tools_torch/make_fixture_dataset.py)
@@ -2198,14 +2367,17 @@ def phase_data(card: str, root: str) -> tuple[dict[str, int], dict[str, str]]:
         f"{utt_rate:.1f} utterances/s (SpeechEpochIterator, batch {TRAIN_BATCH}, serial WAV reads); one "
         f"encoder wav batch ({mb:.1f} MB) host->card: pageable {pageable_ms:.3f} ms, pinned {pinned_ms:.3f} ms "
         f"({mb / pinned_ms:.1f} GB/s; CUDA events, median of 5)")
+    t_grain = time.time()
+    grain_loader(card, split, birds_cfg)
+    t_grain = time.time() - t_grain
 
     base = ["--data_dir", tree, "--output_dir", runs]
     counts = {}
 
-    def counted(name: str, argv: list[str]):
+    def counted(name: str, argv: list[str], out: str = runs):
         reset_counts()
         t0 = time.time()
-        result = entrypoints.main(argv + base)
+        result = entrypoints.main(argv + ["--data_dir", tree, "--output_dir", out])
         counts[name] = read_counts()
         return result, time.time() - t0
 
@@ -2261,6 +2433,7 @@ def phase_data(card: str, root: str) -> tuple[dict[str, int], dict[str, str]]:
             meta = json.load(f)
         if finite_checkpoint(os.path.join(run, "ckpt")) != want or meta["device"] != torch.cuda.get_device_name(0):
             raise AssertionError(f"{run}: not {want} steps on the card ({meta['device']})")
+    t_grain += grain_train_and_tools(card, tree, root, counted)
     samples, sample_s = counted("sample", ["sample", "--cfg", "cfg/eval_birds.yml", "--set",
                                            f"TRAIN.NET_G={os.path.join(gan_run, 'ckpt')}"])
     names = sorted(f.replace("/", "_") + ".png" for f in test.filenames)
@@ -2274,7 +2447,8 @@ def phase_data(card: str, root: str) -> tuple[dict[str, int], dict[str, str]]:
         raise AssertionError(f"sample {names[0]}: shape {px.shape}, std {px.std()}")
 
     extract_batches = sum(math.ceil(n * DATA_CAPTIONS / TRAIN_BATCH) for n in (DATA_TRAIN, DATA_CLASSES))
-    per_step = {"pretrain": steps, "extract": extract_batches, "train": 0, "joint": gan_steps, "sample": 0}
+    per_step = {"pretrain": steps, "extract": extract_batches, "train": 0, "joint": gan_steps, "grain": 0,
+                "sample": 0}
     want = {name: {"mel_fused": n, "gru_fwd": n, "gru_bwd": n if name in ("pretrain", "joint") else 0,
                    "mel_framed": 0} for name, n in per_step.items()}
     log(f"[data] {card}: through entrypoints.main: pretrain {steps} steps {pre_s:.1f} s, extract "
@@ -2322,7 +2496,9 @@ def phase_data(card: str, root: str) -> tuple[dict[str, int], dict[str, str]]:
     for w in (*runs_enc.values(), *runs_gan.values()):
         if not np.isfinite(w["ms_per_step"]):
             raise AssertionError(f"a timed window failed: {w}")
-    log(f"[data] phase took {time.time() - t_phase:.1f} s")
+    ADDED_S["data"] = t_grain
+    log(f"[data] phase took {time.time() - t_phase:.1f} s, of which the grain loader, the grain run and the "
+        f"tools {t_grain:.1f} s")
     return {k: sum(c[k] for c in counts.values()) for k in KERNELS}, {"tree": tree, "samples": samples, "runs": runs}
 
 
@@ -2828,6 +3004,9 @@ def main() -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     paths["cert"] = phase_cert(card)
+    log(f"[smoke] {card}: the grain loader and run, the tools and the event-file checks took "
+        f"{sum(ADDED_S.values()):.1f} s (" + ", ".join(f"{k} phase {v:.1f} s" for k, v in ADDED_S.items())
+        + "; the loop phase's grid and event writes run inside its timed training)")
     rows = []
     for kname, (_, src, replaces) in KERNELS.items():
         by_path = {path: counts[kname] for path, counts in paths.items()}

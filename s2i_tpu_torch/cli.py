@@ -22,14 +22,16 @@ Both training loops checkpoint the full state (``<run_dir>/ckpt``, with the
 batch stream's place in ``train_progress.json``) and resume when given an
 existing ``run_dir``; epochs count in total. Batches come from the synthetic
 corpora (``DATASET_NAME: synthetic``), the StackGAN tree under ``DATA_DIR``
-(``data/stackgan.py``; ``DATA.PIPELINE`` native or pil), or the caller:
+(``data/stackgan.py``; ``DATA.PIPELINE`` native or pil, or grain's order
+from ``data/grain_pipeline.py``), or the caller:
 encoder batches as wavs ``{"wav", "wav_len", "teacher", "class_id"}``, GAN
 batches ``{"images", "embedding", "class_id"}`` (plus ``"wav"``,
 ``"wav_len"`` and ``"teacher"`` in joint mode). A prefetch thread
 (``data/pipeline.py``) loads host batches ahead and copies them to the
 device from pinned buffers on a side stream; ``featurize`` turns wavs into
-log-mel features on the device (K1 on the card). The TensorBoard mirror is
-not ported (``ROADMAP.md`` Queue 1).
+log-mel features on the device (K1 on the card). With ``TRAIN.TENSORBOARD``
+the training drivers also write TensorBoard event files under
+``<run_dir>/tb`` (``utils/logging.py``, no TensorBoard needed).
 
 Under ``torchrun`` (:func:`command_device` joins the process group) the
 encoder pretraining, GAN training, sampling and eval drivers run over a
@@ -57,6 +59,7 @@ from PIL import Image
 from s2i_tpu_torch import config, parallel
 from s2i_tpu_torch.audio.frontend import featurize, frontend_params_from_cfg
 from s2i_tpu_torch.data import SyntheticGanDataset, SyntheticSpeechDataset, synthetic_wavs
+from s2i_tpu_torch.data.grain_pipeline import grain_batch_factory
 from s2i_tpu_torch.data.pipeline import Prefetcher
 from s2i_tpu_torch.data.stackgan import GanEpochIterator, SpeechEpochIterator, StackGanSplit, wav_batch
 from s2i_tpu_torch.device import compute_dtype, moment_dtype, resolve_device
@@ -255,7 +258,7 @@ def run_encoder_pretrain(
         print(f"resumed from step {state.step} (epoch {start_epoch})")
     parallel.replicate_state(state, axis)
     factory = speech_batch_factory(cfg, dev, wav_batches, axis)
-    logger = ScalarLogger(run_dir, writer=writer)
+    logger = ScalarLogger(run_dir, writer=writer, use_tensorboard=bool(cfg.TRAIN.TENSORBOARD))
     log_every = int(cfg.ENCODER.LOG_EVERY)
     snapshot = int(cfg.ENCODER.SNAPSHOT_INTERVAL)
     done = lambda: steps is not None and state.step >= steps  # noqa: E731
@@ -398,13 +401,16 @@ def stackgan_gan_batches(cfg, axis: parallel.DataAxis | None = None) -> Callable
     libjpeg) and PIL otherwise, ``pil`` always PIL. In joint mode
     (``TRAIN.JOINT_FT``) each example also carries the wav of the same
     caption, and its embedding is the distillation teacher (the JAX
-    package's ``joint_batch_factory``)."""
+    package's ``joint_batch_factory``). ``grain`` takes
+    ``data/grain_pipeline.py``'s batches in Grain's order
+    (``DATA.GRAIN_WORKERS`` decode processes) for the frozen GAN; joint mode
+    has no grain path in the JAX package either, and takes the native loader
+    there."""
     pipeline = str(cfg.DATA.PIPELINE).lower()
-    if pipeline == "grain":
-        raise NotImplementedError(
-            "DATA.PIPELINE=grain is not ported (ROADMAP.md Queue 1); use native or pil")
-    if pipeline not in ("native", "pil"):
+    if pipeline not in ("native", "pil", "grain"):
         raise ValueError(f"unknown DATA.PIPELINE {pipeline!r}")
+    if pipeline == "grain" and not bool(cfg.TRAIN.JOINT_FT):
+        return grain_batch_factory(cfg, axis)
     split = StackGanSplit(cfg.DATA_DIR, "train", embedding_file=str(cfg.TEXT.EMBEDDING_FILE))
     p = frontend_params_from_cfg(cfg.AUDIO)
     return lambda epoch: GanEpochIterator(
@@ -414,7 +420,7 @@ def stackgan_gan_batches(cfg, axis: parallel.DataAxis | None = None) -> Callable
         int(cfg.TREE.BASE_SIZE),
         seed=int(cfg.SEED) + epoch,
         num_threads=int(cfg.WORKERS),
-        use_native=None if pipeline == "native" else False,
+        use_native=False if pipeline == "pil" else None,
         with_audio=bool(cfg.TRAIN.JOINT_FT),
         sample_rate=p.sample_rate,
         max_samples=p.max_samples,

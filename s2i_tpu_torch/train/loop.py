@@ -1,6 +1,7 @@
 """The trainer, the counterpart of ``s2i_tpu/train/loop.py``
-(``GanTrainer``): it owns the train state, the checkpoints, the scalar log,
-the snapshot grids and the epoch loop, and leaves the step's math to
+(``GanTrainer``): it owns the train state, the checkpoints, the scalar log
+(and with ``TRAIN.TENSORBOARD`` its event files), the snapshot grids and the
+epoch loop, and leaves the step's math to
 ``train.gan.train_step``. With ``mesh`` (a ``parallel.DataAxis``, the JAX
 trainer's data mesh) every rank runs the trainer: each steps on its rows of
 each global batch, rank 0 alone writes checkpoints, the progress file, the
@@ -76,8 +77,7 @@ class GanTrainer:
         self.p = frontend_params_from_cfg(cfg.AUDIO)
         os.makedirs(output_dir, exist_ok=True)
         self.ckpt = CheckpointManager(os.path.join(output_dir, "ckpt"), max_to_keep, writer=self.writer)
-        # TRAIN.TENSORBOARD: no event files (utils/logging.py)
-        self.logger = ScalarLogger(output_dir, writer=self.writer)
+        self.logger = ScalarLogger(output_dir, writer=self.writer, use_tensorboard=bool(cfg.TRAIN.TENSORBOARD))
         self._viz_emb = None  # the first global batch's first 8 embeddings, taken at the first grid
 
         self.state = gan.init_state(cfg, self.device, axis=mesh)

@@ -21,7 +21,7 @@ import torch
 from s2i_tpu.data.stackgan import StackGanSplit as JaxSplit
 from s2i_tpu_torch import cli, config, entrypoints
 from s2i_tpu_torch.audio.frontend import extract_features, frontend_params_from_cfg
-from s2i_tpu_torch.data.stackgan import StackGanSplit
+from s2i_tpu_torch.data.stackgan import GanEpochIterator, StackGanSplit
 from s2i_tpu_torch.pipeline import build_encoder
 from s2i_tpu_torch.train.loop import GanTrainer
 from s2i_tpu_torch.utils import CheckpointManager
@@ -141,12 +141,20 @@ def test_make_run_dir_writes_the_resolved_config(tmp_path):
 def test_data_pipeline_selection(tree):
     cfg = config.apply_overrides(config.cfg_from_file("cfg/birds_3stages.yml"),
                                  [*SMALL, f"DATA_DIR={tree}", "TEXT.EMBEDDING_FILE=char-CNN-RNN-embeddings.pickle"])
-    cfg.DATA.PIPELINE = "grain"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.gan_batch_factory(cfg)
+    cfg.DATA.PIPELINE = "grain"  # trainer batches in Grain's order (tests/test_torch_grain.py)
+    batches = list(cli.gan_batch_factory(cfg)(0))
+    assert len(batches) == 3 and batches[0].keys() == {"images", "embedding", "class_id"}
+    assert batches[0]["images"][0].shape == (2, 64, 64, 3) and batches[0]["embedding"].shape == (2, 16)
+    cfg.TRAIN.JOINT_FT = True  # joint mode takes the epoch iterator whatever DATA.PIPELINE says, as in JAX
+    joint = cli.gan_batch_factory(cfg)(0)
+    assert isinstance(joint, GanEpochIterator) and joint.with_audio and joint.use_native is True
+    cfg.TRAIN.JOINT_FT = False
     cfg.DATA.PIPELINE = "tf"
     with pytest.raises(ValueError, match="DATA.PIPELINE"):
         cli.gan_batch_factory(cfg)
+    cfg.DATASET_NAME = "synthetic"  # the synthetic corpus ignores DATA.PIPELINE, as in JAX
+    assert next(iter(cli.gan_batch_factory(cfg)(0)))["images"][0].shape == (2, 64, 64, 3)
+    cfg.DATASET_NAME = "birds"
     cfg.DATA.PIPELINE = "pil"
     assert cli.gan_batch_factory(cfg)(0).use_native is False
     cfg.DATA.PIPELINE = "native"

@@ -2,7 +2,8 @@
 every real-data path of the port (loaders, encoder pretraining from WAVs,
 embedding extraction, GAN training, sampling) runs without the CUB or
 Oxford assets. The port's jax-free copy of tools/make_fixture_dataset.py
-and of the tone synthesizer of tools/synthesize_speech.py:
+and of the tone synthesizer of tools/synthesize_speech.py (the one copy:
+tools_torch/synthesize_speech.py takes it from here):
 
     python tools_torch/make_fixture_dataset.py --out output/fixture \\
         --classes 8 --per_class 7 --captions 10 --image_size 500 \\
