@@ -1,0 +1,8 @@
+"""Share of the traced window in which no kernel, copy or set ran on the
+device, in % (the profiler's timeline)."""
+
+
+def read(r, name):
+    if r.trace is None or r.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - r.trace.busy_s / r.trace.window_s)

@@ -1,0 +1,8 @@
+"""Mean device time per step of the span ``gan_g_phase_ms``, from CUDA events the
+task records (the GAN step's own ``mark`` hook, or around the encoder
+step's two calls) over the traced window."""
+
+
+def read(r, name):
+    xs = r.spans.get("gan_g_phase_ms")
+    return sum(xs) / len(xs) if xs else None
