@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from s2i_tpu_torch.audio import filters
 from s2i_tpu_torch.device import resolve_device
 from s2i_tpu_torch.ops import mel_kernel
+from s2i_tpu_torch.utils.logging import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,7 +204,9 @@ def extract_features(
 def featurize(raw: dict, p: FrontendParams, device: str | torch.device = "cuda") -> dict:
     """A wav batch ``{"wav" [B, n], "wav_len" [B], ...}`` → the same batch
     with ``feats`` / ``feat_mask`` computed on ``device`` in place of the
-    wav (for the encoder: ``{"feats", "feat_mask", "teacher", "class_id"}``)."""
-    feats, mask = extract_features(raw["wav"], p, wav_len=raw["wav_len"], device=device)
+    wav (for the encoder: ``{"feats", "feat_mask", "teacher", "class_id"}``).
+    Host span ``audio.featurize``."""
+    with span("audio.featurize"):
+        feats, mask = extract_features(raw["wav"], p, wav_len=raw["wav_len"], device=device)
     rest = {k: v for k, v in raw.items() if k not in ("wav", "wav_len")}
     return {"feats": feats, "feat_mask": mask, **rest}

@@ -40,6 +40,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from s2i_tpu_torch.utils.logging import span
+
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 TIMEOUT_S = 600.0  # a collective that waits longer than this raises instead of hanging
 
@@ -187,16 +189,18 @@ class DataAxis:
     def pmean_grads(self, params) -> None:
         """Average the gradients of ``params`` over the ranks in one flat
         all-reduce. A parameter without a gradient has none on every rank
-        (the ranks run one program) and is skipped."""
-        grads = [p.grad for p in params if p.grad is not None]
-        if not grads:
-            return
-        flat = torch.cat([g.reshape(-1).float() for g in grads])
-        self.mean_(flat)
-        offset = 0
-        for g in grads:
-            g.copy_(flat[offset:offset + g.numel()].view_as(g))
-            offset += g.numel()
+        (the ranks run one program) and is skipped. Host span
+        ``parallel.pmean_grads``."""
+        with span("parallel.pmean_grads"):
+            grads = [p.grad for p in params if p.grad is not None]
+            if not grads:
+                return
+            flat = torch.cat([g.reshape(-1).float() for g in grads])
+            self.mean_(flat)
+            offset = 0
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
 
     def pmean_metrics(self, mets: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """The metrics (0-d tensors) averaged over the ranks, in one all-reduce."""

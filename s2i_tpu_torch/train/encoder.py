@@ -32,6 +32,7 @@ from s2i_tpu_torch.models.layers import BatchNorm, lecun_normal_, set_batchnorm_
 from s2i_tpu_torch.pipeline import build_encoder
 from s2i_tpu_torch.train.losses import distillation_loss
 from s2i_tpu_torch.utils.checkpoint import load_optimizer
+from s2i_tpu_torch.utils.logging import span
 
 if TYPE_CHECKING:
     from s2i_tpu_torch.parallel import DataAxis
@@ -110,27 +111,34 @@ def encoder_train_step(state: EncoderTrainState, batch: dict) -> dict:
     ``state`` in place and returns ``{"loss", "mse"[, "ce", "cls_acc"]}`` as
     0-d tensors on the device (averaged over the ranks under ``state.axis``,
     where ``batch`` is the rank's rows). The gradients stay on the
-    parameters until the next step."""
-    model = state.model
-    dev = next(model.parameters()).device
-    feats = torch.as_tensor(batch["feats"], dtype=torch.float32, device=dev)
-    mask = batch.get("feat_mask")
-    mask = None if mask is None else torch.as_tensor(mask, device=dev).bool()
-    teacher = torch.as_tensor(batch["teacher"], dtype=torch.float32, device=dev)
-    labels = batch.get("class_id")
-    labels = None if labels is None else torch.as_tensor(labels, device=dev).long()
-    model.train()
-    out = model(feats, mask)
-    emb, logits = out if isinstance(out, tuple) else (out, None)
-    loss, mets = distillation_loss(emb, teacher, logits, labels, state.ce_coeff)
-    state.opt.zero_grad(set_to_none=True)
-    loss.backward()
-    if state.axis is not None:
-        state.axis.pmean_grads(model.parameters())
-    state.opt.step()
-    state.step += 1
-    out = {"loss": loss.detach(), **{k: v.detach() for k, v in mets.items()}}
-    return out if state.axis is None else state.axis.pmean_metrics(out)
+    parameters until the next step. While a profiler runs it records the
+    host spans ``encoder.step`` (with the step index) › ``encoder.forward``,
+    ``encoder.backward``, ``encoder.opt`` (``utils.logging.span``)."""
+    with span("encoder.step", step=state.step):
+        model = state.model
+        dev = next(model.parameters()).device
+        feats = torch.as_tensor(batch["feats"], dtype=torch.float32, device=dev)
+        mask = batch.get("feat_mask")
+        mask = None if mask is None else torch.as_tensor(mask, device=dev).bool()
+        teacher = torch.as_tensor(batch["teacher"], dtype=torch.float32, device=dev)
+        labels = batch.get("class_id")
+        labels = None if labels is None else torch.as_tensor(labels, device=dev).long()
+        with span("encoder.forward"):
+            model.train()
+            out = model(feats, mask)
+            emb, logits = out if isinstance(out, tuple) else (out, None)
+            loss, mets = distillation_loss(emb, teacher, logits, labels, state.ce_coeff)
+        with span("encoder.opt"):
+            state.opt.zero_grad(set_to_none=True)
+        with span("encoder.backward"):
+            loss.backward()
+        if state.axis is not None:
+            state.axis.pmean_grads(model.parameters())
+        with span("encoder.opt"):
+            state.opt.step()
+        state.step += 1
+        out = {"loss": loss.detach(), **{k: v.detach() for k, v in mets.items()}}
+        return out if state.axis is None else state.axis.pmean_metrics(out)
 
 
 @torch.no_grad()

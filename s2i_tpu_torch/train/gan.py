@@ -43,6 +43,14 @@ its BatchNorms sync their statistics, the noise is the global batch's
 (:func:`step_noise`), the wrong pair looks across ranks, the gradients are
 averaged before each optimizer step (D, then G) and the metrics after the
 step, so N ranks give the one-process step on the global batch.
+
+While a profiler runs, the step records its host spans
+(``utils.logging.span``): ``gan.step`` (with the step index) around
+``gan.prepare``, ``gan.g_forward`` (› ``gan.encoder_forward``),
+``gan.d_phase`` (› ``gan.d_forward`` per D, ``gan.d_backward``,
+``gan.d_opt``) and ``gan.g_phase`` (› ``gan.adversarial`` ›
+``gan.d_stats_save`` / ``gan.d_stats_restore``; ``gan.g_backward``,
+``gan.g_opt``, ``gan.ema``).
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from s2i_tpu_torch.pipeline import build_encoder, build_generator
 from s2i_tpu_torch.train import encoder as encoder_train
 from s2i_tpu_torch.train import losses
 from s2i_tpu_torch.utils.checkpoint import load_optimizer
+from s2i_tpu_torch.utils.logging import span
 
 if TYPE_CHECKING:
     from s2i_tpu_torch.parallel import DataAxis
@@ -410,93 +419,108 @@ class GForward:
 def g_forward(state: GanTrainState, batch: dict, z: torch.Tensor, eps: torch.Tensor) -> GForward:
     """Step part 1: the one generator forward (train-mode BN)."""
     m = state.models
-    if m.encoder is not None:
-        m.encoder.train()
-        emb = m.encoder(batch["feats"], batch.get("feat_mask"))
-    else:
-        emb = batch["embedding"]
-    m.g.train()
-    c, mu, logvar = m.g.ca_net.sample(emb, eps)
-    return GForward(m.g(z, c), mu, logvar, emb)
+    with span("gan.g_forward"):
+        if m.encoder is not None:
+            with span("gan.encoder_forward"):
+                m.encoder.train()
+                emb = m.encoder(batch["feats"], batch.get("feat_mask"))
+        else:
+            emb = batch["embedding"]
+        m.g.train()
+        c, mu, logvar = m.g.ca_net.sample(emb, eps)
+        return GForward(m.g(z, c), mu, logvar, emb)
 
 
 def d_phase(state: GanTrainState, batch: dict, fwd: GForward) -> dict:
     """Step part 2: every D against (real, wrong pair, detached fake), one
     backward over the sum, one optimizer step per D."""
-    sc = state.sc
-    cond = fwd.mu.detach()
-    cond_wrong = wrong_conditions(cond, batch.get("class_id"), sc.wrong_pair, state.axis)
-    if not sc.b_condition:
-        cond = cond_wrong = None
-    total = fwd.mu.new_zeros((), dtype=torch.float32)
-    mets = {}
-    for i, (d, real, fake) in enumerate(zip(state.models.ds, batch["images"], fwd.fakes)):
-        d.train()
-        li, aux = losses.discriminator_loss(*d.train_logits(real, fake.detach(), cond, cond_wrong), sc.uncond)
-        total = total + li
-        mets[f"d{i}_loss"] = li.detach()
-        mets[f"d{i}_real_acc"] = aux["real_acc"]
-        mets[f"d{i}_fake_acc"] = aux["fake_acc"]
-    for opt in state.d_opts:
-        opt.zero_grad(set_to_none=True)
-    total.backward()
-    if state.axis is not None:
-        state.axis.pmean_grads([p for d in state.models.ds for p in d.parameters()])
-    for opt in state.d_opts:
-        opt.step()
-    return {"d_loss": total.detach(), **mets}
+    with span("gan.d_phase"):
+        sc = state.sc
+        cond = fwd.mu.detach()
+        cond_wrong = wrong_conditions(cond, batch.get("class_id"), sc.wrong_pair, state.axis)
+        if not sc.b_condition:
+            cond = cond_wrong = None
+        total = fwd.mu.new_zeros((), dtype=torch.float32)
+        mets = {}
+        for i, (d, real, fake) in enumerate(zip(state.models.ds, batch["images"], fwd.fakes)):
+            with span("gan.d_forward"):
+                d.train()
+                li, aux = losses.discriminator_loss(*d.train_logits(real, fake.detach(), cond, cond_wrong), sc.uncond)
+                total = total + li
+            mets[f"d{i}_loss"] = li.detach()
+            mets[f"d{i}_real_acc"] = aux["real_acc"]
+            mets[f"d{i}_fake_acc"] = aux["fake_acc"]
+        with span("gan.d_opt"):
+            for opt in state.d_opts:
+                opt.zero_grad(set_to_none=True)
+        with span("gan.d_backward"):
+            total.backward()
+        if state.axis is not None:
+            state.axis.pmean_grads([p for d in state.models.ds for p in d.parameters()])
+        with span("gan.d_opt"):
+            for opt in state.d_opts:
+                opt.step()
+        return {"d_loss": total.detach(), **mets}
 
 
 def _adversarial(state: GanTrainState, fwd: GForward) -> torch.Tensor:
     """The G phase's D terms against the updated Ds, in train mode, with
     their running statistics put back afterwards and no D gradient."""
     ds = state.models.ds
-    saved = [(buf, buf.clone()) for d in ds for buf in d.buffers()]
-    for d in ds:
-        d.requires_grad_(False)
-    try:
-        adv = fwd.mu.new_zeros((), dtype=torch.float32)
-        for d, fake in zip(ds, fwd.fakes):
-            d.train()
-            cond_f, uncond_f = d(fake, fwd.mu if state.sc.b_condition else None)
-            adv = adv + losses.generator_adversarial_loss(cond_f, uncond_f, state.sc.uncond)
-    finally:
-        for d in ds:
-            d.requires_grad_(True)
-        with torch.no_grad():
-            for buf, old in saved:
-                buf.copy_(old)
-    return adv
+    with span("gan.adversarial"):
+        with span("gan.d_stats_save"):
+            saved = [(buf, buf.clone()) for d in ds for buf in d.buffers()]
+            for d in ds:
+                d.requires_grad_(False)
+        try:
+            adv = fwd.mu.new_zeros((), dtype=torch.float32)
+            for d, fake in zip(ds, fwd.fakes):
+                d.train()
+                cond_f, uncond_f = d(fake, fwd.mu if state.sc.b_condition else None)
+                adv = adv + losses.generator_adversarial_loss(cond_f, uncond_f, state.sc.uncond)
+        finally:
+            with span("gan.d_stats_restore"):
+                for d in ds:
+                    d.requires_grad_(True)
+                with torch.no_grad():
+                    for buf, old in saved:
+                        buf.copy_(old)
+        return adv
 
 
 def g_phase(state: GanTrainState, batch: dict, fwd: GForward) -> dict:
     """Step part 3: the G loss, its backward through the generator graph of
     part 1, the G optimizer step and the EMA update."""
-    sc = state.sc
-    adv = _adversarial(state, fwd)
-    kl = kl_divergence(fwd.mu, fwd.logvar)
-    total = adv + sc.kl * kl
-    mets = {"g_adv": adv.detach(), "kl": kl.detach()}
-    if sc.color > 0 and len(fwd.fakes) > 1:
-        closs = losses.color_consistency_loss(fwd.fakes)
-        total = total + sc.color * closs
-        mets["color"] = closs.detach()
-    if state.models.encoder is not None and sc.distill > 0:
-        dloss, dmets = losses.distillation_loss(fwd.emb, batch["teacher"])
-        total = total + sc.distill * dloss
-        mets["distill_mse"] = dmets["mse"].detach()
-    mets["g_loss"] = total.detach()
-    state.g_opt.zero_grad(set_to_none=True)
-    total.backward()
-    if state.axis is not None:
-        state.axis.pmean_grads([p for group in state.g_opt.param_groups for p in group["params"]])
-    state.g_opt.step()
-    if state.ema:
-        decay = 0.0 if state.step < sc.ema_warmup else sc.ema_decay
-        with torch.no_grad():
-            for name, p in state.models.g.named_parameters():
-                state.ema[name].mul_(decay).add_(p, alpha=1.0 - decay)
-    return mets
+    with span("gan.g_phase"):
+        sc = state.sc
+        adv = _adversarial(state, fwd)
+        kl = kl_divergence(fwd.mu, fwd.logvar)
+        total = adv + sc.kl * kl
+        mets = {"g_adv": adv.detach(), "kl": kl.detach()}
+        if sc.color > 0 and len(fwd.fakes) > 1:
+            closs = losses.color_consistency_loss(fwd.fakes)
+            total = total + sc.color * closs
+            mets["color"] = closs.detach()
+        if state.models.encoder is not None and sc.distill > 0:
+            dloss, dmets = losses.distillation_loss(fwd.emb, batch["teacher"])
+            total = total + sc.distill * dloss
+            mets["distill_mse"] = dmets["mse"].detach()
+        mets["g_loss"] = total.detach()
+        with span("gan.g_opt"):
+            state.g_opt.zero_grad(set_to_none=True)
+        with span("gan.g_backward"):
+            total.backward()
+        if state.axis is not None:
+            state.axis.pmean_grads([p for group in state.g_opt.param_groups for p in group["params"]])
+        with span("gan.g_opt"):
+            state.g_opt.step()
+        if state.ema:
+            with span("gan.ema"):
+                decay = 0.0 if state.step < sc.ema_warmup else sc.ema_decay
+                with torch.no_grad():
+                    for name, p in state.models.g.named_parameters():
+                        state.ema[name].mul_(decay).add_(p, alpha=1.0 - decay)
+        return mets
 
 
 def train_step(state: GanTrainState, batch: dict, z=None, eps=None,
@@ -508,22 +532,25 @@ def train_step(state: GanTrainState, batch: dict, z=None, eps=None,
     the rank's rows). ``z`` / ``eps`` (the batch's rows) replace the step's
     own noise draw. ``mark(part)``,
     when given, is called as each part ends (``"g_forward"``, ``"d_phase"``,
-    ``"g_phase"``), e.g. to record a CUDA event there."""
+    ``"g_phase"``), e.g. to record a CUDA event there: where the spans of
+    those parts end."""
     mark = mark or (lambda part: None)
-    batch = prepare_batch(state, batch)
-    if z is None or eps is None:
-        z, eps = step_noise(state, batch["images"][0].shape[0])
-    else:
-        z = torch.as_tensor(z, device=state.device).float()
-        eps = torch.as_tensor(eps, device=state.device).float()
-    fwd = g_forward(state, batch, z, eps)
-    mark("g_forward")
-    mets = d_phase(state, batch, fwd)
-    mark("d_phase")
-    mets.update(g_phase(state, batch, fwd))
-    mark("g_phase")
-    state.step += 1
-    return mets if state.axis is None else state.axis.pmean_metrics(mets)
+    with span("gan.step", step=state.step):
+        with span("gan.prepare"):
+            batch = prepare_batch(state, batch)
+            if z is None or eps is None:
+                z, eps = step_noise(state, batch["images"][0].shape[0])
+            else:
+                z = torch.as_tensor(z, device=state.device).float()
+                eps = torch.as_tensor(eps, device=state.device).float()
+        fwd = g_forward(state, batch, z, eps)
+        mark("g_forward")
+        mets = d_phase(state, batch, fwd)
+        mark("d_phase")
+        mets.update(g_phase(state, batch, fwd))
+        mark("g_phase")
+        state.step += 1
+        return mets if state.axis is None else state.axis.pmean_metrics(mets)
 
 
 def sampling_generator(state: GanTrainState, use_ema: bool = True) -> GNet:

@@ -21,7 +21,10 @@ buffers, a side stream). Joint-mode batches carry wavs, which the loop
 featurizes on the device just before their step. A run that stops (``max_steps``, SIGTERM) checkpoints the
 full state with its place in the batch stream (``train_progress.json``),
 and a trainer on the same directory resumes at the next batch, bitwise as
-if it had not stopped.
+if it had not stopped. ``TRAIN.PROFILE_DIR`` traces 5 steps; the trace
+carries the step's host spans (``utils.logging.span``) and the loop's own:
+``loop.data_wait`` (the wait for the prefetched batch), ``loop.log`` (the
+scalar log) and ``loop.checkpoint`` (a snapshot).
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from s2i_tpu_torch.device import resolve_device
 from s2i_tpu_torch.models.generator import GNet
 from s2i_tpu_torch.parallel import DataAxis, make_parallel_sample_fn, replicate_state
 from s2i_tpu_torch.train import gan
-from s2i_tpu_torch.utils import CheckpointManager, ScalarLogger, profile_steps, save_image_grid, save_images
+from s2i_tpu_torch.utils import CheckpointManager, ScalarLogger, profile_steps, save_image_grid, save_images, span
 
 PROFILE_STEPS = 5  # steps in a TRAIN.PROFILE_DIR trace, which starts 5 steps into a train() call
 PREFETCH_DEPTH = 4  # batches loaded and copied to the device ahead of the step, as in the JAX loop
@@ -249,8 +252,13 @@ class GanTrainer:
                 # host loading and the copy to the device run in the
                 # prefetch thread, overlapping the steps before them
                 batches = Prefetcher(raw, depth=PREFETCH_DEPTH, device=self.device)
+                ready = iter(batches)
                 try:
-                    for batch in batches:
+                    while True:
+                        with span("loop.data_wait"):
+                            batch = next(ready, None)
+                        if batch is None:
+                            break
                         b = len(batch["images"][0])
                         mets = gan.train_step(self.state, self._prep(batch))
                         step = self.state.step
@@ -265,14 +273,16 @@ class GanTrainer:
                             profiling.close()
                         imgs_done += b * (1 if self.mesh is None else self.mesh.size)
                         if self.log_every and step % self.log_every == 0:
-                            scalars = {k: float(v) for k, v in mets.items()}
-                            scalars["images_per_sec"] = imgs_done / max(time.time() - t0, 1e-9)
-                            self.logger.log(step, scalars)
+                            with span("loop.log"):
+                                scalars = {k: float(v) for k, v in mets.items()}
+                                scalars["images_per_sec"] = imgs_done / max(time.time() - t0, 1e-9)
+                                self.logger.log(step, scalars)
                             t0, imgs_done = time.time(), 0
                         if self.image_every and step % self.image_every == 0:
                             self._save_grid(step)
                         if snapshot and step % snapshot == 0:
-                            self._save_checkpoint(step)
+                            with span("loop.checkpoint"):
+                                self._save_checkpoint(step)
                         stop = bool(stop_requested)
                         if self.mesh is not None:
                             stop = self.mesh.any(stop)  # no rank is left waiting in a collective

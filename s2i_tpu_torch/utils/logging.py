@@ -12,6 +12,19 @@ summary (``simple_value``) per logged key and a PNG image summary per
 :func:`read_events` reads such a file back and checks every checksum.
 ``profile_steps`` wraps a block in a ``torch.profiler`` trace written as a
 Chrome trace (chrome://tracing, Perfetto).
+
+:func:`span` marks a part of the program's host work (the GAN and encoder
+steps' parts, featurize, the trainer loop's waits). It records only while a
+``torch.profiler`` runs in the process (``profile_steps``, an operator's own
+profiler, a benchmark's traced window): then each span is kept in memory
+with ``time.time_ns()``, the clock the profiler's events carry, and shows in
+the exported trace as a ``record_function`` range. Otherwise it hands back
+one shared object that does nothing.
+
+    with span("gan.step", step=state.step):
+        ...
+    records, dropped = span_records()   # SpanRecord tuples, oldest first
+    clear_spans()
 """
 
 from __future__ import annotations
@@ -24,11 +37,13 @@ import math
 import os
 import socket
 import struct
+import threading
 import time
-from typing import Any, Iterator
+from typing import Any, Iterator, NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 def _crc32c_table() -> list[int]:
@@ -262,3 +277,91 @@ def profile_steps(log_dir: str) -> Iterator[torch.profiler.profile]:
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{time.time_ns()}.json"))
+
+
+SPAN_CAP = 1 << 20  # records kept; later ones are counted as dropped
+
+
+class SpanRecord(NamedTuple):
+    name: str
+    id: int
+    parent: int | None  # the id of the span open around it on its thread
+    thread: int  # native thread id
+    start_ns: int  # time.time_ns()
+    end_ns: int
+    attrs: dict
+
+
+class _OpenSpans(threading.local):
+    def __init__(self):
+        self.stack: list[int] = []  # this thread's open span ids, innermost last
+
+
+class _SpanBuffer:
+    """The recorded spans, the count dropped past ``SPAN_CAP`` and each
+    thread's open spans."""
+
+    def __init__(self):
+        self.records: list[SpanRecord] = []
+        self.dropped = 0
+        self.ids = itertools.count(1)
+        self.lock = threading.Lock()
+        self.open = _OpenSpans()
+
+    def add(self, rec: SpanRecord) -> None:
+        with self.lock:
+            if len(self.records) < SPAN_CAP:
+                self.records.append(rec)
+            else:
+                self.dropped += 1
+
+
+_SPANS = _SpanBuffer()
+_NO_SPAN = contextlib.nullcontext()  # what span() hands back while no profiler runs
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "id", "parent", "start", "_range")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        stack = _SPANS.open.stack
+        self.parent = stack[-1] if stack else None
+        self.id = next(_SPANS.ids)
+        stack.append(self.id)
+        self.start = time.time_ns()
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._range.__exit__(*exc)
+        end = time.time_ns()
+        _SPANS.open.stack.pop()
+        _SPANS.add(SpanRecord(self.name, self.id, self.parent, threading.get_native_id(), self.start, end,
+                              self.attrs))
+
+
+def span(name: str, **attrs):
+    """A context manager over a part of the program's host work: recorded
+    (see :func:`span_records`) and shown as a ``record_function`` range in
+    the profiler's trace while a profiler runs, else a shared no-op.
+    ``attrs`` (the root spans' ``step``) go into the record."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name, attrs)
+
+
+def span_records() -> tuple[list[SpanRecord], int]:
+    """(the spans recorded since the last :func:`clear_spans`, in the order
+    they ended; the number dropped past ``SPAN_CAP``)."""
+    with _SPANS.lock:
+        return list(_SPANS.records), _SPANS.dropped
+
+
+def clear_spans() -> None:
+    with _SPANS.lock:
+        _SPANS.records.clear()
+        _SPANS.dropped = 0

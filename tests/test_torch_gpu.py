@@ -828,3 +828,79 @@ def test_bf16_artifact_on_the_card_equals_the_live_pipeline(card, tmp_path):
     padded = live.generate(np.concatenate([wavs[:3], np.zeros((1, n), np.float32)]), np.append(lens[:3], n),
                            seed=4, output_dtype="uint8")
     np.testing.assert_array_equal(loaded.generate(wavs[:3], lens[:3], seed=4), padded[:3])
+
+
+def _profiled_on_card(fn):
+    """Run ``fn`` under ``torch.profiler`` with CUDA activity only, as the
+    benchmark traces: (the port's span records, the runtime and driver
+    calls as {correlation id: (name, start_ns)}, the device's operations as
+    (name, correlation id))."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from s2i_tpu_torch.utils import clear_spans, span_records
+
+    clear_spans()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    records = span_records()[0]
+    clear_spans()
+    calls, ops = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if not e.is_user_annotation():
+                ops.append((e.name(), e.correlation_id()))
+        elif e.name().startswith("cu"):
+            calls[e.correlation_id()] = (e.name(), e.start_ns())
+    return records, calls, ops
+
+
+def test_trace_attributes_the_kernels_launches_to_the_encoder_step(card):
+    """The runtime calls that launch K1, K2 and K3 in an encoder step, found
+    in the trace through their kernels and inside the step's root spans
+    (audio.featurize, encoder.step), are as many as the wrappers' counters
+    advance. It runs before the GAN step's trace below: where nvcc built
+    the kernels after a profiler session of the same process had ended,
+    the traces that followed held no K1 kernel (in each of four trials on
+    the H100); the benchmark builds them before it profiles."""
+    from s2i_tpu_torch.train.encoder import encoder_train_step, init_encoder_state
+
+    cfg = config.apply_overrides(config.default_cfg(), ["AUDIO.MAX_FRAMES=256", "DTYPE.COMPUTE=float32"])
+    p = tf.frontend_params_from_cfg(cfg.AUDIO)
+    rng = np.random.default_rng(0)
+    raw = {"wav": torch.from_numpy(_signals(30000, b=8)).to(card),
+           "wav_len": torch.tensor([30000, 25000, 20000, 16000, 12000, 9000, 6000, 3000], device=card),
+           "teacher": torch.from_numpy(rng.standard_normal((8, int(cfg.TEXT.DIMENSION))).astype(np.float32)).to(card),
+           "class_id": torch.arange(8, device=card)}
+    state = init_encoder_state(cfg, "cuda")
+    encoder_train_step(state, tf.featurize(raw, p, card))
+    counters = (mel_kernel.logmel, gru_kernel.gru_scan, gru_kernel.gru_scan_bwd)
+    before = [c.launches for c in counters]
+    records, calls, ops = _profiled_on_card(lambda: encoder_train_step(state, tf.featurize(raw, p, card)))
+    deltas = [c.launches - b for c, b in zip(counters, before)]
+    roots = [(r.start_ns, r.end_ns) for r in records if r.parent is None]
+    assert sorted(r.name for r in records if r.parent is None) == ["audio.featurize", "encoder.step"]
+    seen, linked = [], {}
+    for patterns in (("mel_fused_fft_kernel", "mel_fused_dft_kernel"), ("gru_fwd_kernel",), ("gru_bwd_chain_kernel",)):
+        ids = [c for n, c in ops if any(pat in n for pat in patterns)]
+        linked[patterns[0]] = [calls.get(c) for c in ids]
+        seen.append(sum(1 for c in ids if c in calls and any(s <= calls[c][1] <= e for s, e in roots)))
+    assert deltas == [1, 1, 1] and seen == deltas, (seen, deltas, linked)
+
+
+def test_gan_step_launches_lie_inside_its_span(card):
+    """Every kernel, copy and set of a GAN step is linked in the trace to the
+    call that issued it, and every such call starts inside the step's
+    gan.step span (the shared clock), autograd's backward's included."""
+    cfg = _tiny_gan_cfg()
+    rng = np.random.default_rng(0)
+    batch = {"images": (rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8),),
+             "embedding": rng.standard_normal((4, 32)).astype(np.float32), "class_id": np.arange(4)}
+    state = gan.init_state(cfg, device="cuda")
+    gan.train_step(state, batch)
+    records, calls, ops = _profiled_on_card(lambda: gan.train_step(state, batch))
+    (step,) = [r for r in records if r.name == "gan.step"]
+    assert step.attrs == {"step": 1} and ops
+    assert all(c in calls for _, c in ops)
+    outside = [calls[c] for _, c in ops if not step.start_ns - 50_000 <= calls[c][1] <= step.end_ns]
+    assert not outside, f"{len(outside)} of {len(ops)} launches outside gan.step: {outside[:5]}"

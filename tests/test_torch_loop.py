@@ -198,7 +198,10 @@ def test_profile_dir_writes_a_trace(tmp_path):
     t.train(max_epoch=2, max_steps=11)  # the trace covers steps 6-10
     t.close()
     (trace,) = os.listdir(tmp_path / "trace")
-    assert trace.endswith(".json") and "traceEvents" in (tmp_path / "trace" / trace).read_text()
+    assert trace.endswith(".json")
+    events = json.loads((tmp_path / "trace" / trace).read_text())["traceEvents"]
+    ranges = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert ranges.count("gan.step") == 5 and "loop.data_wait" in ranges  # the program's host spans
 
 
 def test_sample_to_dir_is_independent_of_the_batch_size(tmp_path, straight):
