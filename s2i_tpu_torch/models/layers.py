@@ -202,11 +202,13 @@ class UpConv3x3(Conv2d):
             raise ValueError(f"unknown GAN.UPSAMPLE_MODE {mode!r}: one of {UP_MODES}")
         super().__init__(in_ch, out_ch, 3, stride=1, padding=1, bias=False, dtype=dtype)
         self.phase = mode != "naive" and dtype != torch.float32
+        if self.phase:  # moves with the module, so no forward copies it from the host; not in the state_dict
+            self.register_buffer("phase_m4", torch.tensor(_PHASE_M4, dtype=torch.float32), persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.phase:
             return super().forward(upsample_nearest_2x(x))
-        m = self.weight.new_tensor(_PHASE_M4)
+        m = self.phase_m4
         kt = torch.einsum("rp,sq,oipq->oirs", m, m, self.weight)  # [out, in, 4, 4], float32 tap sums
         # the lhs-dilated correlation with kt is conv_transpose2d with kt
         # flipped and its channel axes swapped

@@ -37,6 +37,7 @@ import functools
 import torch
 
 from s2i_tpu_torch.ops import build
+from s2i_tpu_torch.ops.counted import counted
 
 _PLAN_INTS = 8
 
@@ -339,5 +340,5 @@ def _gru_scan_backward(ctx, dys):
 
 torch.library.register_autograd("s2i::gru_scan", _gru_scan_backward, setup_context=_save_for_backward, lib=_LIB)
 
-gru_scan.launches = 0  # K2 launches since the last reset
-gru_scan_bwd.launches = 0  # K3 launches since the last reset
+counted(gru_scan)  # K2 launches
+counted(gru_scan_bwd)  # K3 launches

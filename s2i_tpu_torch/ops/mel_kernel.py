@@ -48,6 +48,7 @@ import torch.nn.functional as F
 
 from s2i_tpu_torch.audio import filters
 from s2i_tpu_torch.ops import build
+from s2i_tpu_torch.ops.counted import counted
 
 
 def num_frames(n_samples: int, p) -> int:
@@ -311,7 +312,7 @@ def _logmel_fake(wav, n_frames, sample_rate, win_length, hop_length, n_fft, n_me
     return wav.new_empty((wav.shape[0], n_frames, n_mels))
 
 
-logmel.launches = 0  # kernel launches since the last reset
+counted(logmel)  # K1 launches
 logmel.branch = None  # "fft" or "dft": the branch of the last launch
 
 
@@ -419,7 +420,7 @@ def _logmel_frames_fake(frames, sample_rate, win_length, hop_length, n_fft, n_me
     return frames.new_empty((frames.shape[0], n_mels))
 
 
-logmel_frames.launches = 0  # kernel launches since the last reset
+counted(logmel_frames)  # K4 launches
 logmel_frames.branch = None  # "fft" or "dft": the branch of the last launch
 
 

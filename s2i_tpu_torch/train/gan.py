@@ -50,7 +50,20 @@ While a profiler runs, the step records its host spans
 ``gan.d_phase`` (› ``gan.d_forward`` per D, ``gan.d_backward``,
 ``gan.d_opt``) and ``gan.g_phase`` (› ``gan.adversarial`` ›
 ``gan.d_stats_save`` / ``gan.d_stats_restore``; ``gan.g_backward``,
-``gan.g_opt``, ``gan.ema``).
+``gan.g_opt``, ``gan.ema``). The root's ``graph`` says how the step ran.
+
+On a card the step is replayed from CUDA graphs (:class:`StepGraphs`): the
+three parts are captured once, from the same functions that run eagerly,
+into three graphs that share one memory pool, and each later step copies
+its inputs and noise into the graphs' static inputs and replays them. A
+step runs eager (``graph="eager"``) on the CPU, over a data axis, with an
+optimizer that cannot be captured (SGD, :class:`CastMomentAdam`), and for
+an input signature (shapes, types, keys) until two eager steps have seen
+it; the next step with that signature is captured and replayed
+(``"capture"``, the state's third step when the batches keep one shape),
+and the later ones are replayed (``"replay"``). A step of another
+signature, loading a state, its optimizers or the joint encoder's weights,
+or changing its axis drops the graphs. ``train_step.graph_steps`` counts the steps of each kind.
 """
 
 from __future__ import annotations
@@ -68,6 +81,7 @@ from s2i_tpu_torch.models.discriminator import DNet, build_discriminators
 from s2i_tpu_torch.models.encoder import SpeechEncoder
 from s2i_tpu_torch.models.generator import GNet
 from s2i_tpu_torch.models.layers import BatchNorm, set_batchnorm_axis
+from s2i_tpu_torch.ops.counted import WRAPPERS as COUNTED_WRAPPERS
 from s2i_tpu_torch.pipeline import build_encoder, build_generator
 from s2i_tpu_torch.train import encoder as encoder_train
 from s2i_tpu_torch.train import losses
@@ -173,7 +187,14 @@ def make_optimizer(cfg, params, lr: float) -> torch.optim.Optimizer:
     """``TRAIN.OPTIMIZER``: Adam with the cfg's betas (optax ``adam``: eps
     1e-8 outside the square root) or plain SGD. ``TRAIN.MOMENT_DTYPE``
     float32 is ``torch.optim.Adam``; bfloat16 is :class:`CastMomentAdam`
-    over leaves of at least ``TRAIN.MOMENT_DTYPE_MIN_SIZE`` elements."""
+    over leaves of at least ``TRAIN.MOMENT_DTYPE_MIN_SIZE`` elements.
+
+    Adam over parameters on a card is built with ``capturable=True`` (its
+    step counts on the card), so that a CUDA graph can hold its step, and
+    runs the same arithmetic in eager steps. Its state_dict has a CPU Adam's
+    layout (``capturable`` False, as the checkpoints keep it), and loading
+    one keeps each Adam's own ``capturable`` with its step counts where it
+    wants them: a checkpoint moves between the card and the CPU either way."""
     name = str(cfg.TRAIN.OPTIMIZER).lower()
     if name == "sgd":
         return torch.optim.SGD(params, lr=lr)
@@ -181,9 +202,36 @@ def make_optimizer(cfg, params, lr: float) -> torch.optim.Optimizer:
         raise ValueError(f"unknown TRAIN.OPTIMIZER {name!r}")
     betas = (float(cfg.TRAIN.ADAM_BETA1), float(cfg.TRAIN.ADAM_BETA2))
     mdt = moment_dtype(cfg)
-    if mdt == torch.float32:
+    if mdt != torch.float32:
+        return CastMomentAdam(params, lr, betas, 1e-8, mdt, int(cfg.TRAIN.MOMENT_DTYPE_MIN_SIZE))
+    params = list(params)
+    if not params or not all(p.is_cuda for p in params):
         return torch.optim.Adam(params, lr=lr, betas=betas, eps=1e-8)
-    return CastMomentAdam(params, lr, betas, 1e-8, mdt, int(cfg.TRAIN.MOMENT_DTYPE_MIN_SIZE))
+    opt = torch.optim.Adam(params, lr=lr, betas=betas, eps=1e-8, capturable=True)
+    opt._warned_capturable_if_run_uncaptured = True  # its eager steps are meant: no warning
+    opt.register_state_dict_post_hook(_saved_as_on_cpu)
+    opt.register_load_state_dict_post_hook(_capturable_kept)
+    return opt
+
+
+def _saved_as_on_cpu(opt: torch.optim.Optimizer, sd: dict) -> dict:
+    for group in sd["param_groups"]:
+        group["capturable"] = False
+    return sd
+
+
+def _capturable_kept(opt: torch.optim.Optimizer) -> None:
+    for group in opt.param_groups:
+        group["capturable"] = True
+        for p in group["params"]:
+            st = opt.state.get(p)
+            if st and torch.is_tensor(st.get("step")):
+                st["step"] = st["step"].to(p.device, torch.float32)
+
+
+def all_capturable(opts) -> bool:
+    """Whether every group of every optimizer in ``opts`` can be captured."""
+    return all(group.get("capturable", False) for opt in opts for group in opt.param_groups)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,6 +278,12 @@ class GanTrainState:
     sc: StepConfig
     step: int = 0
     axis: DataAxis | None = None  # the data axis the step runs over (use_axis); not part of the state_dict
+    graphs: StepGraphs = dataclasses.field(default_factory=lambda: StepGraphs(), repr=False, compare=False)
+
+    def __post_init__(self):
+        graphs = self.graphs  # an optimizer's load replaces its moments: the graphs read the old ones
+        for opt in (self.g_opt, *self.d_opts):
+            opt.register_load_state_dict_post_hook(lambda _opt: graphs.drop())
 
     @property
     def device(self) -> torch.device:
@@ -269,6 +323,7 @@ class GanTrainState:
             raise ValueError("the checkpoint's G optimizer group holds other parameters, or another order")
         if sd["ema"].keys() != self.ema.keys():
             raise ValueError("the checkpoint's EMA covers other parameters (TRAIN.EMA_G on one side only?)")
+        self.graphs.drop()
         m.g.load_state_dict(sd["g"])
         for d, dsd in zip(m.ds, sd["ds"]):
             d.load_state_dict(dsd)
@@ -285,7 +340,9 @@ class GanTrainState:
 
 def use_axis(state: GanTrainState, axis: DataAxis | None) -> GanTrainState:
     """Run ``state``'s steps over ``axis`` (None: alone): every BatchNorm
-    of G, the Ds and the joint encoder syncs over it. Returns ``state``."""
+    of G, the Ds and the joint encoder syncs over it (and the step runs
+    eager while it has one). Returns ``state``."""
+    state.graphs.drop()
     state.axis = axis
     for mod in (state.models.g, *state.models.ds, state.models.encoder):
         if mod is not None:
@@ -377,12 +434,16 @@ def wrong_conditions(cond: torch.Tensor, class_id, mode: str, axis: DataAxis | N
     return cond_g[wrong_pair_sources(cls_g)][axis.rows(cond_g.shape[0])]
 
 
-def prepare_batch(state: GanTrainState, batch: dict) -> dict:
-    """A host batch → tensors on the state's device: the image pyramid
-    (NCHW, [-1, 1]), ``embedding`` or, in joint mode, ``feats`` /
-    ``feat_mask`` / ``teacher``, and ``class_id``."""
+STEP_KEYS = ("images", "embedding", "feats", "feat_mask", "teacher", "class_id")
+
+
+def device_inputs(state: GanTrainState, batch: dict) -> dict:
+    """A host batch's step inputs on the state's device, the images as the
+    batch holds them (NHWC, uint8 or float): ``embedding`` or, in joint
+    mode, ``feats`` / ``feat_mask`` / ``teacher`` float32 and bool, and
+    ``class_id`` int64. Tensors already there pass as they are."""
     dev = state.device
-    out = {"images": expand_image_pyramid(normalize_images(batch["images"], dev), state.sc.branch_num)}
+    out = {"images": tuple(torch.as_tensor(im).to(dev) for im in batch["images"])}
     for k in ("embedding", "feats", "teacher"):
         if k in batch:
             out[k] = torch.as_tensor(batch[k], device=dev).float()
@@ -390,6 +451,14 @@ def prepare_batch(state: GanTrainState, batch: dict) -> dict:
         out["feat_mask"] = torch.as_tensor(batch["feat_mask"], device=dev).bool()
     if batch.get("class_id") is not None:
         out["class_id"] = torch.as_tensor(batch["class_id"], device=dev).long()
+    return out
+
+
+def prepare_batch(state: GanTrainState, batch: dict) -> dict:
+    """A host batch → tensors on the state's device: :func:`device_inputs`
+    with the images as the pyramid (NCHW, [-1, 1])."""
+    out = device_inputs(state, batch)
+    out["images"] = expand_image_pyramid(normalize_images(out["images"], state.device), state.sc.branch_num)
     return out
 
 
@@ -488,9 +557,9 @@ def _adversarial(state: GanTrainState, fwd: GForward) -> torch.Tensor:
         return adv
 
 
-def g_phase(state: GanTrainState, batch: dict, fwd: GForward) -> dict:
+def g_phase(state: GanTrainState, batch: dict, fwd: GForward, ema: bool = True) -> dict:
     """Step part 3: the G loss, its backward through the generator graph of
-    part 1, the G optimizer step and the EMA update."""
+    part 1, the G optimizer step and (``ema``) :func:`update_ema`."""
     with span("gan.g_phase"):
         sc = state.sc
         adv = _adversarial(state, fwd)
@@ -514,13 +583,23 @@ def g_phase(state: GanTrainState, batch: dict, fwd: GForward) -> dict:
             state.axis.pmean_grads([p for group in state.g_opt.param_groups for p in group["params"]])
         with span("gan.g_opt"):
             state.g_opt.step()
-        if state.ema:
-            with span("gan.ema"):
-                decay = 0.0 if state.step < sc.ema_warmup else sc.ema_decay
-                with torch.no_grad():
-                    for name, p in state.models.g.named_parameters():
-                        state.ema[name].mul_(decay).add_(p, alpha=1.0 - decay)
+        if ema:
+            update_ema(state)
         return mets
+
+
+def ema_decay(state: GanTrainState) -> float:
+    return 0.0 if state.step < state.sc.ema_warmup else state.sc.ema_decay
+
+
+def update_ema(state: GanTrainState) -> None:
+    """The Polyak average of G's parameters, decay :func:`ema_decay`."""
+    if state.ema:
+        with span("gan.ema"):
+            decay = ema_decay(state)
+            with torch.no_grad():
+                for name, p in state.models.g.named_parameters():
+                    state.ema[name].mul_(decay).add_(p, alpha=1.0 - decay)
 
 
 def train_step(state: GanTrainState, batch: dict, z=None, eps=None,
@@ -533,24 +612,195 @@ def train_step(state: GanTrainState, batch: dict, z=None, eps=None,
     own noise draw. ``mark(part)``,
     when given, is called as each part ends (``"g_forward"``, ``"d_phase"``,
     ``"g_phase"``), e.g. to record a CUDA event there: where the spans of
-    those parts end."""
+    those parts end, or where their graphs have been replayed. Eager,
+    captured or replayed as :class:`StepGraphs` decides; the same
+    arithmetic each way."""
     mark = mark or (lambda part: None)
-    with span("gan.step", step=state.step):
-        with span("gan.prepare"):
-            batch = prepare_batch(state, batch)
-            if z is None or eps is None:
-                z, eps = step_noise(state, batch["images"][0].shape[0])
-            else:
-                z = torch.as_tensor(z, device=state.device).float()
-                eps = torch.as_tensor(eps, device=state.device).float()
-        fwd = g_forward(state, batch, z, eps)
-        mark("g_forward")
-        mets = d_phase(state, batch, fwd)
-        mark("d_phase")
-        mets.update(g_phase(state, batch, fwd))
-        mark("g_phase")
+    graphs = state.graphs if _graphable(state) else None
+    sig = None if graphs is None else step_signature(batch, z, eps)
+    mode = "eager" if graphs is None else graphs.mode(sig)
+    with span("gan.step", step=state.step, graph=mode):
+        if mode == "eager":
+            mets = _eager_step(state, batch, z, eps, mark)
+            if graphs is not None:
+                graphs.saw(sig)
+        else:
+            mets = graphs.step(state, batch, z, eps, mark)
+        GRAPH_STEPS[mode] += 1
         state.step += 1
         return mets if state.axis is None else state.axis.pmean_metrics(mets)
+
+
+GRAPH_STEPS = {"eager": 0, "capture": 0, "replay": 0}  # train_step's steps of each kind since the last reset
+train_step.graph_steps = GRAPH_STEPS
+
+
+def step_inputs(state: GanTrainState, batch: dict, z=None, eps=None):
+    """(:func:`device_inputs`, z, eps): the given noise on the device, else
+    :func:`step_noise`."""
+    inputs = device_inputs(state, batch)
+    if z is None or eps is None:
+        z, eps = step_noise(state, inputs["images"][0].shape[0])
+    else:
+        z = torch.as_tensor(z, device=state.device).float()
+        eps = torch.as_tensor(eps, device=state.device).float()
+    return inputs, z, eps
+
+
+def _eager_step(state: GanTrainState, batch: dict, z, eps, mark) -> dict:
+    with span("gan.prepare"):
+        inputs, z, eps = step_inputs(state, batch, z, eps)
+        batch = prepare_batch(state, inputs)
+    fwd = g_forward(state, batch, z, eps)
+    mark("g_forward")
+    mets = d_phase(state, batch, fwd)
+    mark("d_phase")
+    mets.update(g_phase(state, batch, fwd))
+    mark("g_phase")
+    return mets
+
+
+def _graphable(state: GanTrainState) -> bool:
+    return state.device.type == "cuda" and state.axis is None and all_capturable((state.g_opt, *state.d_opts))
+
+
+def _shape_type(v) -> tuple:
+    t = v if isinstance(v, torch.Tensor) else torch.as_tensor(v)
+    return tuple(t.shape), t.dtype
+
+
+def step_signature(batch: dict, z=None, eps=None) -> tuple:
+    """What a captured step holds fixed: which step inputs the batch has,
+    their shapes and types and those of given noise, and the switches that
+    pick the card's algorithms."""
+    sig = [(k, tuple(map(_shape_type, batch[k])) if k == "images" else _shape_type(batch[k]))
+           for k in STEP_KEYS if batch.get(k) is not None]
+    sig += [None if v is None else _shape_type(v) for v in (z, eps)]
+    sig.append((torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32, torch.are_deterministic_algorithms_enabled()))
+    return tuple(sig)
+
+
+class StepGraphs:
+    """A state's CUDA graphs of :func:`train_step` for one input signature
+    (:func:`step_signature`), the last one it stepped. The signature's step
+    runs eager until ``EAGER_STEPS`` eager steps have seen it (cuDNN and
+    cuBLAS have chosen and Adam's state exists); the next one is captured
+    and every later one replayed. A step of another signature drops the
+    graphs, their memory with them, and starts its own count: the trainers,
+    certs and benchmark cells step one signature a state (the loaders drop a
+    short last batch)."""
+
+    EAGER_STEPS = 2
+
+    def __init__(self):
+        self.drop()
+
+    def drop(self) -> None:
+        """Forget the graphs and the count, as when the state's tensors are replaced."""
+        self.sig: tuple | None = None
+        self.seen = 0
+        self.captured: CapturedStep | None = None
+
+    def mode(self, sig: tuple) -> str:
+        if sig != self.sig:
+            return "eager"
+        if self.captured is not None:
+            return "replay"
+        return "capture" if self.seen >= self.EAGER_STEPS else "eager"
+
+    def saw(self, sig: tuple) -> None:
+        if sig != self.sig:
+            self.drop()
+            self.sig = sig
+        self.seen += 1
+
+    def step(self, state: GanTrainState, batch: dict, z, eps, mark) -> dict:
+        with span("gan.prepare"):
+            inputs, z, eps = step_inputs(state, batch, z, eps)
+        if self.captured is None:
+            self.captured = CapturedStep(state, inputs, z, eps)
+        return self.captured.replay(state, inputs, z, eps, mark)
+
+
+class StaticInputs:
+    """The tensors a captured step reads its inputs from: copies of the
+    first step's :func:`step_inputs`, refilled each step, one ``copy_``
+    each."""
+
+    def __init__(self, inputs: dict, z: torch.Tensor, eps: torch.Tensor):
+        self.inputs = {k: tuple(t.clone() for t in v) if k == "images" else v.clone() for k, v in inputs.items()}
+        self.z, self.eps = z.clone(), eps.clone()
+
+    def fill(self, inputs: dict, z: torch.Tensor, eps: torch.Tensor) -> None:
+        for k, v in inputs.items():
+            if k == "images":
+                for dst, src in zip(self.inputs[k], v):
+                    dst.copy_(src)
+            else:
+                self.inputs[k].copy_(v)
+        self.z.copy_(z)
+        self.eps.copy_(eps)
+
+
+def _capturing(graph: torch.cuda.CUDAGraph, pool=None):
+    """Capture into ``graph``. Only this thread's calls are checked: a
+    loader's thread copying the next batch on its own stream meanwhile
+    (``data.pipeline.Prefetcher``) would end a capture that checks every
+    thread's."""
+    return torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local")
+
+
+class CapturedStep:
+    """One signature's graphs: the step's three parts captured in order
+    (``prepare_batch``'s pyramid and :func:`g_forward`; :func:`d_phase`;
+    :func:`g_phase` without the EMA, then the metrics stacked into one
+    vector) into one memory pool, and the EMA (:func:`update_ema`) captured
+    for each decay it meets. Capturing runs nothing, and counts no kernel
+    launch: the capture's step is the graphs' first replay."""
+
+    def __init__(self, state: GanTrainState, inputs: dict, z: torch.Tensor, eps: torch.Tensor):
+        self.static = st = StaticInputs(inputs, z, eps)
+        self.parts = [torch.cuda.CUDAGraph() for _ in range(3)]
+        self.ema: dict[float, torch.cuda.CUDAGraph] = {}
+        pool = torch.cuda.graph_pool_handle()
+        before = [c.launches for c in COUNTED_WRAPPERS]
+        with _capturing(self.parts[0], pool):
+            self.batch = prepare_batch(state, st.inputs)
+            self.fwd = g_forward(state, self.batch, st.z, st.eps)
+        with _capturing(self.parts[1], pool):
+            mets = d_phase(state, self.batch, self.fwd)
+        with _capturing(self.parts[2], pool):
+            mets.update(g_phase(state, self.batch, self.fwd, ema=False))
+            self.keys = list(mets)
+            self.mets = torch.stack([mets[k] for k in self.keys])
+        # the launches the graphs hold, by counted wrapper; capturing ran none of them
+        self.launches = [(c, c.launches - b) for c, b in zip(COUNTED_WRAPPERS, before) if c.launches != b]
+        for c, n in self.launches:
+            c.launches -= n
+
+    def replay(self, state: GanTrainState, inputs: dict, z, eps, mark) -> dict:
+        self.static.fill(inputs, z, eps)
+        self.parts[0].replay()
+        mark("g_forward")
+        self.parts[1].replay()
+        mark("d_phase")
+        self.parts[2].replay()
+        if state.ema:
+            self._ema(state).replay()
+        mark("g_phase")
+        for counter, n in self.launches:
+            counter.launches += n
+        mets = self.mets.clone()  # the caller's, whatever later replays write
+        return {k: mets[i] for i, k in enumerate(self.keys)}
+
+    def _ema(self, state: GanTrainState) -> torch.cuda.CUDAGraph:
+        decay = ema_decay(state)
+        if decay not in self.ema:
+            self.ema[decay] = torch.cuda.CUDAGraph()
+            with _capturing(self.ema[decay]):
+                update_ema(state)
+        return self.ema[decay]
 
 
 def sampling_generator(state: GanTrainState, use_ema: bool = True) -> GNet:
@@ -592,7 +842,8 @@ def bn_recalc(state: GanTrainState, embeddings, batches: int, batch_size: int, s
     z = torch.as_tensor(z, device=dev).float()
     for rows, zb in zip(idx, z):
         g(zb, g.ca_net(pool[rows])[0])
-    return dict(g.named_buffers())
+    kept = g.state_dict().keys()  # not the up-convolutions' constant tap matrices
+    return {name: buf for name, buf in g.named_buffers() if name in kept}
 
 
 def example_noise(seed: int, indices, dim: int) -> torch.Tensor:

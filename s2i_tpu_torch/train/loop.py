@@ -126,8 +126,8 @@ class GanTrainer:
             stats = gan.bn_recalc(self.state, embeddings, self._recalc_batches,
                                   int(self.cfg.TRAIN.BATCH_SIZE), seed=seed)
             with torch.no_grad():
-                for name, buf in g.named_buffers():
-                    buf.copy_(stats[name])
+                for name, stat in stats.items():
+                    g.get_buffer(name).copy_(stat)
         return g
 
     def _write_run_metadata(self) -> None:
@@ -196,6 +196,7 @@ class GanTrainer:
                 "drift?): " + "; ".join(problems[:8]) + (", ..." if len(problems) > 8 else "")
             )
         enc.load_state_dict({k: src[k] for k in enc.state_dict()})
+        self.state.graphs.drop()
         print(f"encoder warm-started from {net_e} step {estep}")
 
     def _prep(self, batch: dict) -> dict:

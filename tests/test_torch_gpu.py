@@ -859,7 +859,7 @@ def test_trace_attributes_the_kernels_launches_to_the_encoder_step(card):
     """The runtime calls that launch K1, K2 and K3 in an encoder step, found
     in the trace through their kernels and inside the step's root spans
     (audio.featurize, encoder.step), are as many as the wrappers' counters
-    advance. It runs before the GAN step's trace below: where nvcc built
+    advance. It runs before the GAN step's traces below: where nvcc built
     the kernels after a profiler session of the same process had ended,
     the traces that followed held no K1 kernel (in each of four trials on
     the H100); the benchmark builds them before it profiles."""
@@ -900,7 +900,39 @@ def test_gan_step_launches_lie_inside_its_span(card):
     gan.train_step(state, batch)
     records, calls, ops = _profiled_on_card(lambda: gan.train_step(state, batch))
     (step,) = [r for r in records if r.name == "gan.step"]
-    assert step.attrs == {"step": 1} and ops
+    assert step.attrs == {"step": 1, "graph": "eager"} and ops
     assert all(c in calls for _, c in ops)
     outside = [calls[c] for _, c in ops if not step.start_ns - 50_000 <= calls[c][1] <= step.end_ns]
     assert not outside, f"{len(outside)} of {len(ops)} launches outside gan.step: {outside[:5]}"
+
+
+def test_step_span_names_how_it_ran(card):
+    """The gan.step root carries graph=eager, capture or replay; a replayed
+    step records no span of the parts it replays, but the first one past
+    the EMA's warm-up captures the EMA at its new decay. It profiles after
+    the trace tests above, as the GAN step's trace does: after a profiler
+    session of the process had ended, later traces held no K1 kernel (on
+    the H100), which the encoder step's trace test counts."""
+    from s2i_tpu_torch.utils import clear_spans, span_records
+
+    cfg = config.apply_overrides(_tiny_gan_cfg(), ["TRAIN.EMA_WARMUP=3"])
+    rng = np.random.default_rng(0)
+    batches = [{"images": (rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8),),
+                "embedding": rng.standard_normal((4, 32)).astype(np.float32), "class_id": np.arange(4)}
+               for _ in range(5)]
+    state = gan.init_state(cfg, device="cuda")
+    clear_spans()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            for b in batches:
+                gan.train_step(state, b)
+            torch.cuda.synchronize()
+        records = span_records()[0]
+    finally:
+        clear_spans()
+    roots = sorted((r for r in records if r.name == "gan.step"), key=lambda r: r.start_ns)
+    assert [r.attrs for r in roots] == [{"step": i, "graph": g} for i, g in
+                                        enumerate(["eager", "eager", "capture", "replay", "replay"])]
+    inside = [{r.name for r in records if root.start_ns <= r.start_ns and r.end_ns <= root.end_ns}
+              for root in roots[3:]]
+    assert inside == [{"gan.step", "gan.prepare", "gan.ema"}, {"gan.step", "gan.prepare"}]

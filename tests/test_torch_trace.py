@@ -160,7 +160,7 @@ def test_gan_step_spans_under_the_profiler(joint):
     records, events = profiled(lambda: gan.train_step(state, batch), 2)
     roots = [r for r in records if r.parent is None]
     assert [(r.name, r.attrs) for r in sorted(roots, key=lambda r: r.start_ns)] == [
-        ("gan.step", {"step": 1}), ("gan.step", {"step": 2})]
+        ("gan.step", {"step": 1, "graph": "eager"}), ("gan.step", {"step": 2, "graph": "eager"})]
     children = dict(GAN_CHILDREN, **{"gan.g_forward": {"gan.encoder_forward"}} if joint else {})
     check_tree(records, children)
     names = [r.name for r in records]
